@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root; needs one card
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+   sm_90a (one nvcc per source, in parallel) and print the card's name and
+   power limit;
+2. hold the fused stream+collide kernel K1 against its plain PyTorch
+   version on a small walled and a small periodic geometry: every mode x
+   {LBGK, MRT} x {incompressible, quasi-compressible} x force on/off, in
+   float64 and float32, and D2Q9;
+3. hold the collision kernel K2 against its plain version on the same
+   matrix of cases;
+4. drive the main path at full size: ``make_case("spheres", scale=4)``
+   (258 x 258 x 256, 236,017 tiles) with ``backend="fused"`` and NEBB
+   inlet/outlet, LBGK incompressible, in float64 and float32, timed with
+   CUDA events; the rw_only variant (paper §4.1, the bandwidth ceiling);
+   then the fused engine against the gather engine with the collision
+   kernel after 10 float64 steps.  Launch counters are zeroed just before
+   each run and read just after; each kernel of the run must have
+   launched once per step.  At the main path's shapes each kernel is held
+   against its plain version and timed, beside its bound;
+5. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
+   result line ``{"ok": true, "device": {...}}``.
+
+Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
+of order 0.1 — the kernels sum in another order than the plain versions
+(and contract multiply-adds), so the last bits differ.  Collision results
+are compared at fluid slots: the plain quasi-compressible math divides by
+rho = 0 at solid slots before masking them.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import collision as C  # noqa: E402
+from repro_torch.core.engine import LBMConfig, SparseTiledLBM  # noqa: E402
+from repro_torch.core.lattice import get_lattice  # noqa: E402
+from repro_torch.core.tiling import SOLID, tile_geometry  # noqa: E402
+from repro_torch.data import geometry as geo  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import collide as k2  # noqa: E402
+from repro_torch.kernels import stream_collide as k1  # noqa: E402
+from repro_torch.launch import lbm as launcher  # noqa: E402
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}   # non-tensor-core
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# timed steps per full-size run: the spheres case's velocity inlet diverges
+# at dead-end inlet nodes (in the JAX package too) and turns non-finite
+# near step 170, so every run restarts from t = 0 and stays well short
+STEPS = 100
+WARM = 20
+PARITY_STEPS = 10
+SOURCE = "src/repro_torch/csrc"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warm: int = 2, label: str = "") -> float:
+    """Median milliseconds of ``reps`` calls of ``fn`` (after ``warm``),
+    each between two CUDA events on the current stream.  With ``label``,
+    logs the median, the 80th percentile and the sample count."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        fn()
+        ev.record()
+    events[-1].synchronize()
+    times = np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    if label:
+        log(f"[time] {label}: median {np.median(times):.4f} ms, p80 "
+            f"{np.percentile(times, 80):.4f} ms over {reps} launches")
+    return float(np.median(times))
+
+
+def collision_flops_per_node(q: int, e: np.ndarray, mrt: bool) -> int:
+    """Flops of one node's macroscopics + equilibrium + relaxation
+    (incompressible), counted from the formulas as the JAX package's
+    ``model_flops_per_node`` does."""
+    nonzero_e = int((e != 0).sum())
+    flops = (q - 1) + nonzero_e * 2 - 3 + nonzero_e * 2 - q + q * 6 + 3
+    return flops + (q * q * 2 + q * 2 if mrt else q * 3)
+
+
+def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
+    d = (a - b).abs()
+    if mask is not None:
+        d = d[mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+class Smoke:
+    """The phases, in order; ``kernels`` collects the kernels line."""
+
+    def __init__(self):
+        self.dev = torch.device("cuda")
+        self.rng = np.random.default_rng(0)
+        self.kernels: dict[str, dict] = {}
+
+    # ------------------------------------------------------------ phase 1
+    def build_kernels(self) -> None:
+        t0 = time.perf_counter()
+        logs = build.build_all()
+        log(f"[build] nvcc sm_90a for {', '.join(build.SOURCES)} in "
+            f"{time.perf_counter() - t0:.1f} s ({build.nvcc()})")
+        for name, text in logs.items():
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+            if regs:
+                log(f"[build] {name}: {len(regs)} kernels, registers "
+                    f"{min(regs)}-{max(regs)} per thread, {spills} bytes spilled")
+        k1._lib()
+        k2._lib()
+
+    # ---------------------------------------------------- phase 2 and 3
+    def _small_state(self, geometry, lat, dtype):
+        """Packed state with random populations of order 0.1 at every slot
+        (solid ones included: bounce-back must read the right one)."""
+        tiling = tile_geometry(geometry, 4)
+        t, n = tiling.num_tiles, tiling.nodes_per_tile
+        types = np.full((t + 1, n), SOLID, np.uint8)
+        types[:t] = tiling.node_types
+        f = np.zeros((t + 1, lat.q, n))
+        f[:t] = self.rng.uniform(0.02, 0.1, size=(t, lat.q, n))
+        return tiling, (torch.as_tensor(f, dtype=dtype, device=self.dev),
+                        torch.as_tensor(types, device=self.dev))
+
+    def _cases(self):
+        for dtype in (torch.float64, torch.float32):
+            for model in (C.LBGK, C.LBMRT):
+                for fluid in (C.INCOMPRESSIBLE, C.QUASI_COMPRESSIBLE):
+                    for force in (None, (1e-4, -2e-4, 3e-4)):
+                        yield dtype, "D3Q19", C.CollisionConfig(model, fluid, 0.7), force
+            for fluid in (C.INCOMPRESSIBLE, C.QUASI_COMPRESSIBLE):
+                yield dtype, "D2Q9", C.CollisionConfig(C.LBGK, fluid, 0.7), (1e-4, 0.0, 0.0)
+
+    def check_k1_small(self) -> None:
+        walled = geo.duct_wrap(geo.random_spheres(box=32, porosity=0.6,
+                                                  diameter=8, seed=1))
+        periodic = geo.random_spheres(box=32, porosity=0.6, diameter=8, seed=2)
+        flat = geo.channel2d(32, 32)
+        geoms = {"D3Q19": [("walled", walled, (False,) * 3),
+                           ("periodic", periodic, (True,) * 3)],
+                 "D2Q9": [("channel2d", flat, (True, False, False))]}
+        worst, count = {}, 0
+        for dtype, lname, cfg, force in self._cases():
+            lat = get_lattice(lname)
+            for gname, g, per in geoms[lname]:
+                tiling, (f, types) = self._small_state(g, lat, dtype)
+                nbrs = torch.as_tensor(k1.build_neighbor_table(tiling, per),
+                                       device=self.dev)
+                fluid = (types != SOLID)[:, None, :].expand_as(f)
+                modes = k1.MODES if cfg.model == C.LBGK and force is None \
+                    else ("full",)
+                for mode in modes:
+                    args = (f, types, nbrs, lat, cfg, 4, force, mode)
+                    got = k1.stream_collide_tiles(*args)
+                    torch.cuda.synchronize()
+                    want = k1.stream_collide_tiles_ref(*args)
+                    err = max_err(got, want, fluid if mode == "full" else None)
+                    tag = f"{mode}/{dtype}"
+                    worst[tag] = max(worst.get(tag, 0.0), err)
+                    count += 1
+                    if not err <= TOL[dtype] or got[-1].any():
+                        raise AssertionError(
+                            f"K1 {lname} {gname} {mode} {cfg} force={force} "
+                            f"{dtype}: max |err| {err:.3e} > {TOL[dtype]:.0e}")
+        log(f"[K1 vs plain] {count} cases within tolerance; worst |err| by "
+            f"mode/dtype: {json.dumps(worst)}")
+
+    def check_k2_small(self) -> None:
+        g = geo.duct_wrap(geo.random_spheres(box=32, porosity=0.6, diameter=8,
+                                             seed=1))
+        worst, count = {}, 0
+        for dtype, lname, cfg, force in self._cases():
+            lat = get_lattice(lname)
+            tiling, (f, types) = self._small_state(
+                g if lname == "D3Q19" else geo.channel2d(32, 32), lat, dtype)
+            fq = f[:-1].movedim(0, 1).contiguous()               # (Q, T, n)
+            solid = types[:-1] == SOLID
+            got = k2.collide_tiles(fq, solid, lat, cfg, force)
+            torch.cuda.synchronize()
+            want = k2.collide_tiles_ref(fq, solid, lat, cfg, force)
+            err = max_err(got, want, ~solid[None].expand_as(fq))
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            count += 1
+            if not err <= TOL[dtype] or got[:, solid].any():
+                raise AssertionError(f"K2 {lname} {cfg} force={force} {dtype}: "
+                                     f"max |err| {err:.3e}")
+        log(f"[K2 vs plain] {count} cases within tolerance; worst |err|: "
+            f"{json.dumps(worst)}")
+
+    # ------------------------------------------------------------ phase 4
+    def _engine(self, case, dtype: str, **kw):
+        cfg = LBMConfig(
+            collision=C.CollisionConfig(tau=0.6), dtype=dtype,
+            boundaries=case.boundaries, periodic=case.periodic, **kw)
+        return SparseTiledLBM(case.geometry, cfg, device=self.dev)
+
+    def _main_run(self, eng, steps: int) -> tuple[float, dict]:
+        """The counted run: counters zeroed just before, read just after."""
+        launcher.reset_launch_counts()
+        seconds = launcher.timed_run(eng, steps)
+        return seconds, launcher.launch_counts()
+
+    def profile_steps(self, eng, sec_per_step: float, steps: int = 10) -> None:
+        """Where a fused step's time goes: ``torch.profiler`` over ``steps``
+        steps — device kernels per step, device busy time (union of kernel
+        and memory-op intervals), K1's part of it, and the host's top-level
+        torch ops per step.  The idle share is against the unprofiled step
+        time ``sec_per_step``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        eng.run(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.run(steps)
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, -1.0
+        for start, stop, _ in dev:             # union of device intervals (us)
+            busy += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+        k1 = sum(b - a for a, b, name in dev if "stream_collide_kernel" in name)
+        host_ops = [e for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith("aten::") and e.cpu_parent is None]
+        if not dev:
+            log(f"[profile {eng.cfg.dtype}] the profiler saw no device time: "
+                "device busy share not measured")
+            return
+        step_ms = sec_per_step * 1e3
+        busy_ms = busy / 1e3 / steps
+        log(f"[profile {eng.cfg.dtype}] per step: {len(dev) / steps:.1f} device "
+            f"ops, device busy {busy_ms:.4f} ms of {step_ms:.4f} ms (idle share "
+            f"{1 - busy_ms / step_ms:.3f}), K1 {k1 / 1e3 / steps:.4f} ms, "
+            f"{len(host_ops) / steps:.1f} top-level host torch ops")
+
+    def run_fused(self, case, dtype: str) -> None:
+        t0 = time.perf_counter()
+        eng = self._engine(case, dtype, backend="fused")
+        setup = time.perf_counter() - t0
+        eng.run(WARM)
+        eng.reset()
+        seconds, launches = self._main_run(eng, STEPS)
+        if launches["stream_collide_tiles"] != STEPS:
+            raise AssertionError(f"K1 launched {launches} times in {STEPS} steps")
+        f = eng.f
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("non-finite state after the fused run")
+        fmax = float(f.abs().max())
+        sec = seconds / STEPS
+        nf, q, itemsize = eng.n_fluid_nodes, eng.lat.q, eng.dtype.itemsize
+        gbs = 2 * q * nf * itemsize / sec / 1e9
+        log(f"[main fused {dtype}] spheres scale 4: {eng.tiling.num_tiles} tiles "
+            f"({len(eng.backend._bc['tiles'])} with boundary nodes), "
+            f"{nf} fluid nodes, eta_t {eng.tiling.tile_utilisation:.3f}, set-up "
+            f"{setup:.1f} s; {STEPS} steps in {seconds:.4f} s = {sec * 1e3:.4f} "
+            f"ms/step, {eng.mflups(sec):.1f} MFLUPS, Eqn-10 {gbs:.1f} GB/s = "
+            f"{gbs * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s; launches "
+            f"{json.dumps(launches)}; mass {eng.total_mass():.6f}, max |f| {fmax:.4f}")
+        self.profile_steps(eng, sec)
+
+        # K1 at the main path's shapes, on the run's own state
+        b = eng.backend
+        out = b.other(f)
+        args = (f, b._types, b._nbrs, eng.lat, eng.cfg.collision, 4, None, "full")
+        got = k1.stream_collide_tiles(*args, out=out).clone()
+        torch.cuda.synchronize()
+        want = k1.stream_collide_tiles_ref(*args)
+        fluid = (b._types != SOLID)[:, None, :].expand_as(f)
+        err = max_err(got, want, fluid)
+        del want, got
+        if not err <= TOL[eng.dtype]:
+            raise AssertionError(f"K1 vs plain at full size: {err:.3e}")
+        ms = time_ms(lambda: k1.stream_collide_tiles(*args, out=out), 50,
+                     label=f"K1 {dtype}")
+        plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 3, 1,
+                           label=f"K1 plain {dtype}")
+        t, n = eng.tiling.num_tiles, eng.tiling.nodes_per_tile
+        nbytes = 2 * t * q * n * itemsize + (t + 1) * n + t * 27 * 4 + q * n * 5
+        flops = t * n * collision_flops_per_node(q, eng.lat.e, False)
+        bms, by = bound(nbytes, flops, eng.dtype)
+        name = "stream_collide_tiles" + ("" if dtype == "float64" else f"[{dtype}]")
+        self.kernels[name] = {
+            "name": name, "route": "cuda", "source": f"{SOURCE}/stream_collide.cu",
+            "replaces": "src/repro/kernels/stream_collide.py:206",
+            "launches": launches["stream_collide_tiles"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+        log(f"[K1 {dtype} full size] |err| {err:.3e}, {ms:.4f} ms/launch "
+            f"(bound {bms:.4f} ms by {by}, {bms / ms:.3f} of it), plain "
+            f"{plain_ms:.2f} ms")
+
+    def run_rw_only(self, case) -> None:
+        eng = self._engine(case, "float64", backend="fused", kernel_mode="rw_only")
+        eng.run(WARM)
+        eng.reset()
+        seconds, launches = self._main_run(eng, STEPS)
+        if launches["stream_collide_tiles"] != STEPS:
+            raise AssertionError(f"K1 rw_only launched {launches}")
+        b, f = eng.backend, eng.f
+        out = b.other(f)
+        args = (f, b._types, b._nbrs, eng.lat, eng.cfg.collision, 4, None, "rw_only")
+        got = k1.stream_collide_tiles(*args, out=out).clone()
+        err = max_err(got, k1.stream_collide_tiles_ref(*args))
+        if err != 0.0:
+            raise AssertionError(f"K1 rw_only vs plain: {err}")
+        t = eng.tiling.num_tiles
+        ms = time_ms(lambda: k1.stream_collide_tiles(*args, out=out), 50,
+                     label="K1 rw_only float64")
+        plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 5,
+                           label="K1 rw_only plain")
+        lib_ms = time_ms(lambda: out[:t].copy_(f[:t]), 50, label="copy_")
+        nbytes = 2 * f[:t].numel() * f.element_size()
+        bms, by = bound(nbytes, 0, eng.dtype)
+        sec = seconds / STEPS
+        log(f"[main fused rw_only float64] {STEPS} steps in {seconds:.4f} s, "
+            f"{nbytes / sec / 1e9:.1f} GB/s moved; kernel {ms:.4f} ms/launch, "
+            f"copy_ {lib_ms:.4f} ms, bound {bms:.4f} ms")
+        self.kernels["stream_collide_tiles[rw_only]"] = {
+            "name": "stream_collide_tiles[rw_only]", "route": "cuda",
+            "source": f"{SOURCE}/stream_collide.cu",
+            "replaces": "src/repro/kernels/stream_collide.py:231",
+            "launches": launches["stream_collide_tiles"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
+
+    def fused_vs_gather(self, case) -> None:
+        t0 = time.perf_counter()
+        eng_g = self._engine(case, "float64", backend="gather",
+                             layout_scheme="paper", use_kernel=True)
+        setup = time.perf_counter() - t0
+        eng_f = self._engine(case, "float64", backend="fused")
+        _, launches_f = self._main_run(eng_f, PARITY_STEPS)
+        _, launches_g = self._main_run(eng_g, PARITY_STEPS)
+        if launches_f["stream_collide_tiles"] != PARITY_STEPS \
+                or launches_g["collide_tiles"] != PARITY_STEPS:
+            raise AssertionError(f"launches fused {launches_f} gather {launches_g}")
+        fluid = ~eng_f._solid[None]
+        cf = eng_f.backend.canonical(eng_f.f)
+        cg = eng_g.backend.canonical(eng_g.f)
+        err = max_err(cf, cg, fluid.expand_as(cf))
+        if not err <= TOL[torch.float64] or not bool(torch.isfinite(cf).all()):
+            raise AssertionError(f"fused vs gather+K2: {err:.3e}")
+        log(f"[fused vs gather+K2 float64] {PARITY_STEPS} steps at full size: "
+            f"max |err| {err:.3e} at fluid slots (<= 1e-12); gather set-up "
+            f"{setup:.1f} s; launches fused {json.dumps(launches_f)}, gather "
+            f"{json.dumps(launches_g)}")
+        del eng_f, cf
+
+        # K2 at the gather path's shapes: a post-streaming (Q, T, n) state
+        lat, cfg = eng_g.lat, eng_g.cfg.collision
+        f_in = torch.take(eng_g.f, eng_g.backend._gather).reshape(eng_g.f.shape)
+        solid = eng_g._solid
+        got = k2.collide_tiles(f_in, solid, lat, cfg)
+        torch.cuda.synchronize()
+        want = k2.collide_tiles_ref(f_in, solid, lat, cfg)
+        err2 = max_err(got, want, ~solid[None].expand_as(got))
+        del got, want
+        if not err2 <= TOL[torch.float64]:
+            raise AssertionError(f"K2 vs plain at full size: {err2:.3e}")
+        ms = time_ms(lambda: k2.collide_tiles(f_in, solid, lat, cfg), 50,
+                     label="K2 float64")
+        plain_ms = time_ms(lambda: k2.collide_tiles_ref(f_in, solid, lat, cfg),
+                           3, 1, label="K2 plain float64")
+        q, t, n = f_in.shape
+        nbytes = 2 * f_in.numel() * f_in.element_size() + t * n
+        flops = t * n * collision_flops_per_node(q, lat.e, False)
+        bms, by = bound(nbytes, flops, f_in.dtype)
+        self.kernels["collide_tiles"] = {
+            "name": "collide_tiles", "route": "cuda", "source": f"{SOURCE}/collide.cu",
+            "replaces": "src/repro/kernels/collide.py:127",
+            "launches": launches_g["collide_tiles"], "max_abs_err": err2,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+        log(f"[K2 float64 full size] |err| {err2:.3e}, {ms:.4f} ms/launch (bound "
+            f"{bms:.4f} ms by {by}, {bms / ms:.3f} of it), plain {plain_ms:.2f} ms")
+
+    def main_path(self) -> None:
+        t0 = time.perf_counter()
+        case = launcher.make_case("spheres", 4)
+        log(f"[main] spheres scale 4 geometry {case.geometry.shape} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for dtype in ("float64", "float32"):
+            self.run_fused(case, dtype)
+            torch.cuda.empty_cache()
+        self.run_rw_only(case)
+        torch.cuda.empty_cache()
+        self.fused_vs_gather(case)
+        log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    log(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke()
+    smoke.build_kernels()
+    smoke.check_k1_small()
+    smoke.check_k2_small()
+    smoke.main_path()
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": list(smoke.kernels.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

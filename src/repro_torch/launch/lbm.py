@@ -1,0 +1,176 @@
+"""LBM launcher: run the paper's solver on one device.
+
+    # the paper's fused path on the card, double precision
+    PYTHONPATH=src python -m repro_torch.launch.lbm --case spheres --scale 4 \\
+        --backend fused --dtype float64
+
+    # the plain PyTorch versions of the kernels on the CPU (small cases)
+    PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu
+
+The run warms up with ``--steps`` steps, resets to t = 0 and times
+``--steps`` steps.  On the card the time comes from CUDA events around the
+launch loop; on the CPU from the host clock.  It prints MFLUPS, the
+bandwidth of the paper's Eqn-10 minimum traffic (2·Q·n_fluid·sizeof(dtype)
+bytes per step) and the kernel launches of the timed run.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import collision as C
+from repro_torch.core.boundary import BoundarySpec
+from repro_torch.core.engine import LBMConfig, SparseTiledLBM
+from repro_torch.core.tiling import INLET, NODE_ORDERS, OUTLET, TILE_ORDERS
+from repro_torch.data import geometry as geo
+from repro_torch.kernels.collide import collide_tiles
+from repro_torch.kernels.stream_collide import stream_collide_tiles
+
+
+@dataclasses.dataclass
+class Case:
+    """A runnable scenario: geometry + boundary conditions + engine knobs."""
+
+    geometry: np.ndarray
+    boundaries: tuple = ()
+    periodic: tuple = (False, False, False)
+    lattice: str = "D3Q19"
+    force: tuple | None = None
+
+
+_Z_FLOW = ((INLET, BoundarySpec("velocity", (0, 0, 1),
+                                velocity=(0, 0, 0.02))),
+           (OUTLET, BoundarySpec("pressure", (0, 0, -1), rho=1.0)))
+_X_FLOW = ((INLET, BoundarySpec("velocity", (1, 0, 0),
+                                velocity=(0.02, 0, 0))),
+           (OUTLET, BoundarySpec("pressure", (-1, 0, 0), rho=1.0)))
+
+CASES = ("cavity", "duct", "spheres", "vessel", "aorta", "channel2d")
+
+
+def make_case(name: str, scale: int = 1) -> Case:
+    """The reference launcher's cases, geometry for geometry."""
+    if name == "cavity":
+        return Case(
+            geo.cavity3d(48 * scale),
+            ((geo.LID, BoundarySpec("velocity", (0, 0, -1),
+                                    velocity=(0.05, 0.0, 0.0))),))
+    if name == "duct":
+        g = geo.duct(24 * scale, 24 * scale, 96 * scale)
+        bcs = ((INLET, BoundarySpec("velocity", (0, 0, 1),
+                                    velocity=(0, 0, 0.05))),
+               (OUTLET, BoundarySpec("pressure", (0, 0, -1), rho=1.0)))
+        return Case(g, bcs)
+    if name == "spheres":
+        return Case(geo.duct_wrap(
+            geo.random_spheres(box=64 * scale, porosity=0.7, diameter=16)),
+            _Z_FLOW)
+    if name == "vessel":
+        return Case(geo.vessel_aneurysm(
+            (64 * scale, 48 * scale, 48 * scale),
+            radius=8.0 * scale, bulge=12.0 * scale), _X_FLOW)
+    if name == "aorta":
+        return Case(geo.aorta_coarctation(
+            (48 * scale, 64 * scale, 96 * scale), radius=9.0 * scale),
+            _Z_FLOW)
+    if name == "channel2d":
+        return Case(geo.channel2d(32 * scale, 32 * scale),
+                    periodic=(True, False, True), lattice="D2Q9",
+                    force=(1e-5, 0.0, 0.0))
+    raise ValueError(f"unknown case {name!r}; expected one of {CASES}")
+
+
+def launch_counts() -> dict[str, int]:
+    return {"stream_collide_tiles": stream_collide_tiles.launches,
+            "collide_tiles": collide_tiles.launches}
+
+
+def reset_launch_counts() -> None:
+    stream_collide_tiles.launches = 0
+    collide_tiles.launches = 0
+
+
+def timed_run(eng: SparseTiledLBM, steps: int) -> float:
+    """Seconds for ``eng.run(steps)``: CUDA events on the card (after a
+    synchronise), the host clock on the CPU."""
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.run(steps)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / 1e3
+    t0 = time.perf_counter()
+    eng.run(steps)
+    return time.perf_counter() - t0
+
+
+def run_local(args) -> dict:
+    case = make_case(args.case, args.scale)
+    cfg = LBMConfig(
+        lattice=case.lattice,
+        collision=C.CollisionConfig(model=args.collision, fluid=args.fluid,
+                                    tau=args.tau),
+        layout_scheme="xyz" if args.backend == "fused" else "paper",
+        dtype=args.dtype, boundaries=case.boundaries, periodic=case.periodic,
+        force=case.force, backend=args.backend, tile_order=args.order,
+        node_order=args.node_order, use_kernel=args.backend == "gather")
+    eng = SparseTiledLBM(case.geometry, cfg, device=args.device)
+    eng.run(args.steps)            # warm-up: kernels built and loaded
+    eng.reset()                    # back to t=0: the timed run IS the physics
+    reset_launch_counts()
+    dt = timed_run(eng, args.steps)
+    launches = launch_counts()
+    sec = dt / args.steps
+    min_bytes = 2 * eng.lat.q * eng.n_fluid_nodes * eng.dtype.itemsize
+    out = {
+        "case": args.case, "scale": args.scale, "backend": args.backend,
+        "dtype": args.dtype, "device": str(eng.device),
+        "device_name": (torch.cuda.get_device_name(eng.device)
+                        if eng.device.type == "cuda" else "cpu"),
+        "fluid_nodes": eng.n_fluid_nodes, "tiles": eng.tiling.num_tiles,
+        "eta_t": eng.tiling.tile_utilisation, "steps": args.steps,
+        "seconds": dt, "mflups": eng.mflups(sec),
+        "eqn10_gbs": min_bytes / sec / 1e9, "launches": launches,
+        "mass": eng.total_mass(),
+    }
+    print(f"case={args.case} scale={args.scale} backend={args.backend} "
+          f"dtype={args.dtype} device={out['device_name']} "
+          f"fluid={out['fluid_nodes']:,} eta_t={out['eta_t']:.3f} "
+          f"steps={args.steps} {dt:.4f}s -> {out['mflups']:.1f} MFLUPS, "
+          f"Eqn-10 {out['eqn10_gbs']:.1f} GB/s, launches={launches}")
+    print(f"mass = {out['mass']:.6f} after {args.steps} steps")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--case", default="duct", choices=list(CASES))
+    ap.add_argument("--scale", type=int, default=1)
+    ap.add_argument("--order", default="zmajor", choices=list(TILE_ORDERS),
+                    help="tile traversal policy (data placement)")
+    ap.add_argument("--node-order", default="canonical",
+                    choices=list(NODE_ORDERS), dest="node_order",
+                    help="within-tile node enumeration (data placement)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--tau", type=float, default=0.6)
+    ap.add_argument("--collision", default="lbgk", choices=["lbgk", "lbmrt"])
+    ap.add_argument("--fluid", default="incompressible",
+                    choices=["incompressible", "quasi_compressible"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    ap.add_argument("--backend", default="fused", choices=["gather", "fused"],
+                    help="fused: kernel K1; gather: gather streaming + K2")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    run_local(ap.parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where there is no NVIDIA GPU.  On a machine with
+one, run them with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+(the kernels build into build/repro_torch/ at first use).  Tolerances:
+1e-12 in float64 and 1e-5 in float32 on values of order 0.1 — the kernels
+sum in another order than the plain versions.  Collision outputs are
+compared at fluid slots.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import collision as C
+from repro_torch.core.engine import LBMConfig, SparseTiledLBM
+from repro_torch.core.lattice import get_lattice
+from repro_torch.core.tiling import SOLID, tile_geometry
+from repro_torch.data.geometry import duct_wrap, random_spheres
+from repro_torch.kernels import collide as k2
+from repro_torch.kernels import stream_collide as k1
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+VARIANTS = [(m, fl, force) for m in (C.LBGK, C.LBMRT)
+            for fl in (C.INCOMPRESSIBLE, C.QUASI_COMPRESSIBLE)
+            for force in (None, (1e-4, -2e-4, 3e-4))]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _packed(dev, dtype, periodic=(False,) * 3):
+    g = random_spheres(box=16, porosity=0.6, diameter=8, seed=1)
+    if not any(periodic):
+        g = duct_wrap(g)
+    tiling = tile_geometry(g, 4)
+    t, n = tiling.num_tiles, 64
+    types = np.full((t + 1, n), SOLID, np.uint8)
+    types[:t] = tiling.node_types
+    f = np.zeros((t + 1, 19, n))
+    f[:t] = np.random.default_rng(0).uniform(0.02, 0.1, (t, 19, n))
+    nbrs = k1.build_neighbor_table(tiling, periodic)
+    return (torch.as_tensor(f, dtype=dtype, device=dev),
+            torch.as_tensor(types, device=dev),
+            torch.as_tensor(nbrs, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model,fluid,force", VARIANTS)
+def test_k2_matches_plain(dev, dtype, model, fluid, force):
+    f, types, _ = _packed(dev, dtype)
+    fq = f[:-1].movedim(0, 1).contiguous()
+    solid = types[:-1] == SOLID
+    lat, cfg = get_lattice("D3Q19"), C.CollisionConfig(model, fluid, 0.7)
+    before = k2.collide_tiles.launches
+    got = k2.collide_tiles(fq, solid, lat, cfg, force)
+    assert k2.collide_tiles.launches == before + 1
+    want = k2.collide_tiles_ref(fq, solid, lat, cfg, force)
+    fluid_slots = ~solid[None].expand_as(fq)
+    assert float((got - want).abs()[fluid_slots].max()) <= TOL[dtype]
+    assert not got[:, solid].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", k1.MODES)
+@pytest.mark.parametrize("model,fluid,force", VARIANTS[::3])
+def test_k1_matches_plain(dev, dtype, mode, model, fluid, force):
+    for periodic in ((False,) * 3, (True,) * 3):
+        f, types, nbrs = _packed(dev, dtype, periodic)
+        args = (f, types, nbrs, get_lattice("D3Q19"),
+                C.CollisionConfig(model, fluid, 0.7), 4, force, mode)
+        got = k1.stream_collide_tiles(*args)
+        want = k1.stream_collide_tiles_ref(*args)
+        mask = (types != SOLID)[:, None, :].expand_as(f) if mode == "full" \
+            else torch.ones_like(f, dtype=torch.bool)
+        assert float((got - want).abs()[mask].max()) <= TOL[dtype]
+        assert not got[-1].any()
+
+
+def test_k1_rejects_what_it_cannot_take(dev):
+    f, types, nbrs = _packed(dev, torch.float64)
+    lat, cfg = get_lattice("D3Q19"), C.CollisionConfig()
+    with pytest.raises(TypeError):
+        k1.stream_collide_tiles(f.half(), types, nbrs, lat, cfg)
+    with pytest.raises(TypeError):
+        k1.stream_collide_tiles(f, types.int(), nbrs, lat, cfg)
+    with pytest.raises(ValueError):
+        k1.stream_collide_tiles(f, types, nbrs.cpu(), lat, cfg)
+    with pytest.raises(ValueError):
+        k1.stream_collide_tiles(f, types, nbrs, lat, cfg, out=f)
+
+
+def test_fused_engine_matches_gather_with_k2(dev):
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    kw = dict(dtype="float64", boundaries=_Z_FLOW,
+              collision=C.CollisionConfig(C.LBMRT, C.QUASI_COMPRESSIBLE, 0.8))
+    e_f = SparseTiledLBM(g, LBMConfig(backend="fused", **kw))
+    e_g = SparseTiledLBM(g, LBMConfig(backend="gather", use_kernel=True,
+                                      layout_scheme="paper", **kw))
+    k1.stream_collide_tiles.launches = k2.collide_tiles.launches = 0
+    e_f.run(10)
+    e_g.run(10)
+    assert k1.stream_collide_tiles.launches == 10
+    assert k2.collide_tiles.launches == 10
+    fluid = ~e_f._solid[None]
+    diff = (e_f.backend.canonical(e_f.f) - e_g.backend.canonical(e_g.f)).abs()
+    assert float(diff[fluid.expand_as(diff)].max()) <= 1e-12
