@@ -23,14 +23,37 @@ Phases (any failure exits non-zero and prints no result line):
    each run and read just after; each kernel of the run must have
    launched once per step.  At the main path's shapes each kernel is held
    against its plain version and timed, beside its bound;
-5. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
+5. hold the flash-attention kernel K3 against its plain version on
+   seeded unit-normal inputs: B in {1, 2} x (H, KVH) in {(4, 4), (4, 2),
+   (24, 2)} x hd in {16, 64, 128, 256} x softcap in {None, 30} x causal
+   on/off x S = T in {64, 200, 2048} x {float32, bfloat16};
+6. drive the LM serving path at full width: starcoder2-3b (30 layers,
+   d_model 3072, 24 query heads over 2 KV heads, hd 128), the port's own
+   weights from seed 0 (float32 parameters, bfloat16 compute, float32
+   cache), ``ServeEngine`` with 4 slots and max_len 4096, 8 requests of
+   2048 seeded random tokens, 32 new tokens each, greedy.  K3's counter is
+   zeroed just before the run and read just after: 8 prefills x 30 layers
+   = 240 launches, all of them inside prefill calls and none inside
+   decode calls (the engine reads the counter around each).  Prefill and decode are timed apart with CUDA events;
+   a profiler pass splits one prefill and a few decode steps into device
+   time and K3's share.  At the main shapes (q/k/v of layer 0 of one of
+   the run's prompts) K3 is held against its plain version and timed
+   beside it and beside ``scaled_dot_product_attention`` (the library
+   yardstick; the port never calls it);
+7. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
    result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
 of order 0.1 — the kernels sum in another order than the plain versions
 (and contract multiply-adds), so the last bits differ.  Collision results
 are compared at fluid slots: the plain quasi-compressible math divides by
-rho = 0 at solid slots before masking them.
+rho = 0 at solid slots before masking them.  K3: element by element,
+``kernels.flash.error_bound`` — 1e-5 absolute in float32 (outputs of
+order 1); in bfloat16 2**-7 |plain| + 2**-10 (P |v|), P |v| the same
+attention over |v|: both versions compute in float32 and round to
+bfloat16 once, so they differ by one bf16 ulp where their float32 results
+straddle a rounding boundary, and K3's TF32 rounding of p in p.v moves an
+output by at most 2**-11 (P |v|) however much its terms cancel.
 """
 from __future__ import annotations
 
@@ -53,11 +76,20 @@ from repro_torch.core.lattice import get_lattice  # noqa: E402
 from repro_torch.core.tiling import SOLID, tile_geometry  # noqa: E402
 from repro_torch.data import geometry as geo  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import collide as k2  # noqa: E402
+from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
+from repro_torch.models.attention import _project_qkv  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.model import CausalLM  # noqa: E402
+from repro_torch.models.transformer import attn_cfg_for  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}   # non-tensor-core
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,   # non-tensor-core
+              torch.bfloat16: 989e12}                       # dense tensor core
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # timed steps per full-size run: the spheres case's velocity inlet diverges
 # at dead-end inlet nodes (in the JAX package too) and turns non-finite
@@ -66,6 +98,9 @@ STEPS = 100
 WARM = 20
 PARITY_STEPS = 10
 SOURCE = "src/repro_torch/csrc"
+# the serving run
+ARCH = "starcoder2-3b"
+SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 4096, 8, 2048, 32
 
 
 def log(msg: str) -> None:
@@ -114,6 +149,13 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k3_error(q, k, v, got, want, kw: dict) -> tuple[float, float]:
+    """(max |got - want|, max of |got - want| / K3's error bound over the
+    elements): K3 is within tolerance when the second is at most 1."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d / k3.error_bound(q, k, v, want, **kw)).max())
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
     d = (a - b).abs()
     if mask is not None:
@@ -143,6 +185,7 @@ class Smoke:
                     f"{min(regs)}-{max(regs)} per thread, {spills} bytes spilled")
         k1._lib()
         k2._lib()
+        k3._lib()
 
     # ---------------------------------------------------- phase 2 and 3
     def _small_state(self, geometry, lat, dtype):
@@ -424,6 +467,193 @@ class Smoke:
         self.fused_vs_gather(case)
         log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # ------------------------------------------------------------ phase 5
+    def _qkv(self, gen, dtype, b, s, h, kvh, hd):
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=self.dev).to(dtype)
+        return randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
+
+    def check_k3_matrix(self) -> None:
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        worst, count = {}, 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for b in (1, 2):
+                for h, kvh in ((4, 4), (4, 2), (24, 2)):
+                    for hd in (16, 64, 128, 256):
+                        for s in (64, 200, 2048):
+                            q, k, v = self._qkv(gen, dtype, b, s, h, kvh, hd)
+                            for cap in (None, 30.0):
+                                for causal in (True, False):
+                                    kw = dict(softcap=cap, causal=causal)
+                                    got = k3.flash_attention(q, k, v, **kw)
+                                    torch.cuda.synchronize()
+                                    want = k3.flash_attention_ref(q, k, v, **kw)
+                                    err, ratio = k3_error(q, k, v, got, want, kw)
+                                    tag = str(dtype).split(".")[1]
+                                    worst[tag] = max(worst.get(tag, 0.0), ratio)
+                                    count += 1
+                                    if not ratio <= 1.0 or got.shape != q.shape:
+                                        raise AssertionError(
+                                            f"K3 {dtype} B={b} H={h} KVH={kvh} hd={hd} "
+                                            f"S=T={s} softcap={cap} causal={causal}: "
+                                            f"max |err| {err:.3e}, {ratio:.3f} of "
+                                            "the bound at the worst element")
+                            del q, k, v, got, want
+        log(f"[K3 vs plain] {count} cases within tolerance; worst |err| / "
+            f"bound over elements, by dtype: {json.dumps(worst)}")
+
+    # ------------------------------------------------------------ phase 6
+    def serve_main(self) -> None:
+        cfg = get_config(ARCH)
+        t0 = time.perf_counter()
+        model = CausalLM(cfg, device=self.dev, seed=0)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        eng = ServeEngine(model, SLOTS, MAX_LEN, cache_dtype=torch.float32)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32)
+                   for _ in range(REQUESTS)]
+        # warm-up outside the counted run: cuBLAS handles, the bf16 weight
+        # copies, the first K3 launch
+        model.prefill(torch.as_tensor(prompts[0][:64], device=self.dev)[None],
+                      128, torch.float32)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=NEW))
+        torch.cuda.reset_peak_memory_stats()
+        k3.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        finished = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k3.flash_attention.launches
+        phases = eng.k3_launches            # read around each phase's calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != REQUESTS * cfg.n_layers or phases != {
+                "prefill": launches, "decode": 0}:
+            raise AssertionError(f"K3 launched {launches} times ({phases} by "
+                                 f"phase), expected {REQUESTS} prefills x "
+                                 f"{cfg.n_layers} layers, none in decode")
+        if len(finished) != REQUESTS or any(len(r.out_tokens) != NEW
+                                            for r in finished):
+            raise AssertionError("a request did not finish with "
+                                 f"{NEW} tokens: {[len(r.out_tokens) for r in finished]}")
+        logits, _ = model.decode_step(
+            torch.as_tensor([[r.out_tokens[-1]] for r in finished[:SLOTS]],
+                            device=self.dev), eng.cache, PROMPT + NEW)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits after the serving run")
+        pre_ms, dec_ms = eng.phase_ms["prefill"], eng.phase_ms["decode"]
+        per_request, per_step = pre_ms / REQUESTS, dec_ms / eng.decode_steps
+        log(f"[serve {ARCH}] {model.param_count():,} parameters ({cfg.param_dtype} "
+            f"params, {cfg.dtype} compute, float32 cache), init {setup:.1f} s; "
+            f"{REQUESTS} requests x {PROMPT} prompt tokens, {NEW} new, {SLOTS} "
+            f"slots: prefill {eng.tokens['prefill']} tokens in {pre_ms:.2f} ms = "
+            f"{eng.tokens['prefill'] / pre_ms * 1e3:.1f} tok/s ({per_request:.3f} "
+            f"ms/request); decode {eng.tokens['decode']} tokens in "
+            f"{eng.decode_steps} steps, {dec_ms:.2f} ms = "
+            f"{eng.tokens['decode'] / dec_ms * 1e3:.1f} tok/s ({per_step:.4f} "
+            f"ms/step); run wall "
+            f"{wall:.2f} s; K3 launches {launches} (prefill {phases['prefill']}, "
+            f"decode {phases['decode']}); peak device memory {peak:.2f} GiB; first tokens "
+            f"{finished[0].out_tokens[:6]}")
+        self.profile_serve(model, eng, prompts[0], per_request, per_step)
+        self.k3_main_shapes(model, cfg, prompts[0], launches,
+                            {name: n / REQUESTS for name, n in phases.items()})
+
+    def profile_serve(self, model, eng, prompt, prefill_ms, step_ms) -> None:
+        """Device time of one prefill and 5 decode steps under
+        ``torch.profiler``: device busy (union of kernel and memory-op
+        intervals) and K3's part of it.  The idle share is against the
+        unprofiled times of the counted run (``prefill_ms`` per request,
+        ``step_ms`` per decode step)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        toks = torch.as_tensor(prompt, device=self.dev)[None]
+        step_toks = torch.zeros(SLOTS, 1, dtype=torch.int64, device=self.dev)
+        for phase, fn, reps, unprofiled in (
+                ("prefill", lambda: model.prefill(toks, MAX_LEN, torch.float32),
+                 1, prefill_ms),
+                ("decode", lambda: model.decode_step(step_toks, eng.cache,
+                                                     PROMPT + NEW), 5, step_ms)):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                stop.record()
+                stop.synchronize()
+            ms = start.elapsed_time(stop) / reps
+            dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                         for e in prof.events() if e.device_type == DeviceType.CUDA)
+            if not dev:
+                log(f"[profile serve {phase}] the profiler saw no device time: "
+                    "device busy share not measured")
+                continue
+            busy, end = 0.0, -1.0
+            for a, b, _ in dev:
+                busy += max(0.0, b - max(a, end))
+                end = max(end, b)
+            k3_ms = sum(b - a for a, b, n in dev if "flash_fwd" in n) / 1e3 / reps
+            busy_ms = busy / 1e3 / reps
+            host_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU
+                        and e.name.startswith("aten::") and e.cpu_parent is None]
+            host_ms = sum(e.cpu_time_total for e in host_ops) / 1e3 / reps
+            log(f"[profile serve {phase}] per call: {len(dev) / reps:.0f} device "
+                f"ops, device busy {busy_ms:.4f} ms of {unprofiled:.4f} ms "
+                f"unprofiled (idle share {1 - busy_ms / unprofiled:.3f}; "
+                f"{ms:.4f} ms under the profiler), K3 {k3_ms:.4f} ms = "
+                f"{k3_ms / unprofiled:.3f} of the call; {len(host_ops) / reps:.0f} "
+                f"top-level host torch ops taking {host_ms:.2f} ms of host time "
+                f"(profiled)")
+
+    def k3_main_shapes(self, model, cfg, prompt, launches, per_request: dict) -> None:
+        """K3 on layer 0's q/k/v for one of the run's prompts (the same
+        functions prefill runs), against its plain version and SDPA."""
+        acfg = attn_cfg_for(cfg, None)
+        toks = torch.as_tensor(prompt, device=self.dev)[None]
+        with torch.no_grad():
+            block = model.layers[0]
+            h = rms_norm(model._embed(toks), block.norm_attn, cfg.norm_eps)
+            q, k, v = _project_qkv(block.attn.weights(model.dtype), h, acfg,
+                                   model._positions(toks))
+        kw = dict(scale=acfg.scale, softcap=acfg.softcap, causal=True)
+        got = k3.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = k3.flash_attention_ref(q, k, v, **kw)
+        err, ratio = k3_error(q, k, v, got, want, kw)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K3 vs plain at the main shapes: max |err| "
+                                 f"{err:.3e}, {ratio:.3f} of the bound")
+        del got, want
+        shape = f"S={q.shape[1]} H={q.shape[2]} KVH={k.shape[2]} hd={q.shape[3]} {q.dtype}"
+        ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50,
+                     label=f"K3 {shape}")
+        plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
+                           label="K3 plain")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=acfg.scale,
+                                      enable_gqa=True), 50, label="SDPA")
+        s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+        flops = 4.0 * (s * (s + 1) / 2) * hd * hq       # the visible pairs
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        bms, by = bound(nbytes, flops, q.dtype)
+        self.kernels["flash_attention"] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": f"{SOURCE}/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash.py:70",
+            "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+            "launches_per_request": per_request}
+        log(f"[K3 {shape}] |err| {err:.3e} ({ratio:.3f} of the bound), {ms:.4f} "
+            f"ms/launch = {flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by "
+            f"{by}, {bms / ms:.4f} of it), plain {plain_ms:.3f} ms, SDPA "
+            f"{lib_ms:.4f} ms ({ms / lib_ms:.1f}x faster than K3)")
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -441,6 +671,9 @@ def main() -> int:
     smoke.check_k1_small()
     smoke.check_k2_small()
     smoke.main_path()
+    torch.cuda.empty_cache()
+    smoke.check_k3_matrix()
+    smoke.serve_main()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -1,5 +1,5 @@
-"""Carry the JAX package's configuration and flow state into the port and
-back.
+"""Carry the JAX package's configuration, flow state, LM parameters and
+KV caches into the port and back.
 
 The reference's state is plain numpy once it leaves JAX, so nothing here
 imports it:
@@ -13,6 +13,12 @@ imports it:
   port engine's state.  The reference engine must have run the same
   geometry and configuration (layout and orders included).
 * :func:`state_to_reference` does the reverse.
+* :func:`lm_params_from_reference` takes the reference ``CausalLM``'s
+  parameter pytree as nested dicts of numpy arrays (``stack.layers.*``
+  stacked over the L layers) and returns a port :class:`CausalLM` holding
+  them; :func:`lm_params_to_reference` does the reverse, byte for byte.
+* :func:`lm_cache_from_reference` / :func:`lm_cache_to_reference` carry a
+  KV cache (``{"layers": {"k", "v"}}``, (L, B, T, KVH, hd)) across.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import torch
 from .core.boundary import BoundarySpec
 from .core.collision import CollisionConfig
 from .core.engine import LBMConfig, SparseTiledLBM
+from .models.config import ModelConfig
+from .models.model import CausalLM
 
 
 def config_from_reference(d: dict) -> LBMConfig:
@@ -77,3 +85,95 @@ def state_to_reference(engine: SparseTiledLBM) -> np.ndarray:
     same configuration: packed (T+1, Q, n) for fused, storage (Q, T, n) for
     gather."""
     return engine.f.detach().cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# LM parameters and caches
+# --------------------------------------------------------------------------
+def _reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """The reference pytree path of a port parameter name, and the layer
+    index into its stacked (L, ...) array (None outside the stack)."""
+    if name.startswith("layers."):
+        _, layer, *rest = name.split(".")
+        return ("stack", "layers", *rest), int(layer)
+    return {"embed": ("embed", "table"), "final_norm": ("final_norm",),
+            "lm_head": ("lm_head", "w")}[name], None
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bfloat16 (ml_dtypes, as JAX gives it) included."""
+    arr = np.array(arr)                 # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
+                             device="cpu") -> CausalLM:
+    """A port model on ``device`` holding the reference's parameters."""
+    model = CausalLM(cfg, device=device, seed=None)
+    seen = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path, layer = _reference_path(name)
+            node = params_np
+            for key in path:
+                node = node[key]
+            arr = np.asarray(node if layer is None else node[layer])
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(_tensor(arr))
+            seen.add(path)
+    leaves = set()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            leaves.add(path)
+
+    walk(params_np, ())
+    if leaves != seen:
+        raise ValueError(f"reference parameters without a port counterpart: "
+                         f"{sorted(leaves - seen)}")
+    return model
+
+
+def _put(tree: dict, path: tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def lm_params_to_reference(model: CausalLM) -> dict:
+    """The reference pytree of ``model``'s parameters, as numpy."""
+    out: dict = {}
+    stacked: dict = {}
+    for name, p in model.named_parameters():
+        path, layer = _reference_path(name)
+        arr = p.detach().cpu().numpy()
+        if layer is None:
+            _put(out, path, arr)
+        else:
+            stacked.setdefault(path, []).append(arr)
+    for path, arrs in stacked.items():
+        _put(out, path, np.stack(arrs))
+    return out
+
+
+def lm_cache_from_reference(cache_np: dict, device="cpu") -> dict:
+    """A reference KV cache (numpy) as the port's, on ``device``."""
+    return {"layers": {k: _tensor(cache_np["layers"][k]).to(device)
+                       for k in ("k", "v")}}
+
+
+def lm_cache_to_reference(cache: dict) -> dict:
+    """The port's KV cache as numpy; a bfloat16 cache comes back widened
+    to float32 (numpy has no bfloat16)."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {"layers": {k: arr(cache["layers"][k]) for k in ("k", "v")}}

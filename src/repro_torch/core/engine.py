@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.stream_collide import MODES
 from . import collision as col
 from .backends import BACKENDS, make_backend
@@ -67,16 +68,6 @@ class LBMConfig:
             raise ValueError(f"dtype must be one of {tuple(DTYPES)}")
         if self.kernel_mode not in MODES:
             raise ValueError(f"kernel_mode must be one of {MODES}")
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; a CUDA device without CUDA raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels on the CPU")
-    return dev
 
 
 class SparseTiledLBM:

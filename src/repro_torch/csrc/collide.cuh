@@ -11,10 +11,9 @@
 // type T (float or double), as the reference does.
 #pragma once
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "common.cuh"
 
 namespace repro {
 
@@ -154,17 +153,4 @@ __device__ __forceinline__ void collide_node(T (&f)[Q], bool solid,
   }
 }
 
-// Runs fn(std::integral_constant<bool, b>) so that a runtime flag picks a
-// template instantiation.
-template <typename F>
-inline int with_flag(bool b, F&& fn) {
-  return b ? fn(std::true_type{}) : fn(std::false_type{});
-}
-
 }  // namespace repro
-
-// Shared by every library built from csrc: the message for an error code
-// that a launch function returned.
-extern "C" const char* repro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

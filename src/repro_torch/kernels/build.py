@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("collide", "stream_collide")
+SOURCES = ("collide", "flash_attn", "stream_collide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,8 +110,9 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-# the C entry points' dtype argument
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+# the C entry points' dtype argument (each entry point takes a subset)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+LBM_DTYPES = (torch.float32, torch.float64)
 
 
 def check_tensor(x: torch.Tensor, name: str, device: torch.device,

@@ -122,7 +122,7 @@ def collide_tiles(f: torch.Tensor, solid: torch.Tensor, lat: Lattice,
         return collide_tiles_ref(f, solid, lat, cfg, force)
     if f.dim() != 3 or f.shape[0] != lat.q:
         raise ValueError(f"f must be (Q={lat.q}, T, n), got {tuple(f.shape)}")
-    if f.dtype not in build.DTYPE_CODES:
+    if f.dtype not in build.LBM_DTYPES:
         raise TypeError(f"collide_tiles takes float32/float64, got {f.dtype}")
     build.check_tensor(f, "f", f.device)
     build.check_tensor(solid, "solid", f.device, torch.bool, f.shape[1:])

@@ -1,0 +1,125 @@
+"""Flash-attention forward kernel (K3) and its plain PyTorch version.
+
+``flash_attention(q, k, v, scale=, softcap=, causal=)`` is the reference's
+``repro.kernels.flash.flash_attention`` (the Pallas kernel at
+``src/repro/kernels/flash.py:70``): q (B, S, H, hd), k/v (B, T, KVH, hd)
+with H = KVH * G, query head h reading KV head h // G.  It returns
+(B, S, H, hd) in q's dtype.  q is scaled in float32, logits and
+probabilities are float32, an optional ``softcap * tanh(x / softcap)``
+caps the logits, and the causal mask keeps key t for query s when t <= s.
+Unlike the Pallas kernel it takes any S and T.
+
+On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
+(bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
+it runs :func:`flash_attention_ref`.  In bfloat16 (hd >= 16) the kernel
+runs both products on the tensor cores: q.k as exact bf16 products summed
+in float32, then scaled in float32, and p.v with p rounded to TF32 (10
+mantissa bits); elsewhere it computes in float32 throughout.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from functools import lru_cache
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None, softcap: float | None = None,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention` with K3's numerics:
+    q scaled in float32, float32 logits and probabilities (dense softmax),
+    the output cast to q's dtype at the end."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(b, s, kvh, h // kvh, hd) * scale
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if causal:
+        visible = (torch.arange(t, device=q.device)[None, :]
+                   <= torch.arange(s, device=q.device)[:, None])
+        logits = logits.masked_fill(~visible, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                want: torch.Tensor, **kw) -> torch.Tensor:
+    """How far K3's output may lie from ``want = flash_attention_ref(q, k,
+    v, **kw)``, element by element (float32, ``want``'s shape).
+
+    float32: 1e-5 absolute (outputs of order 1 at most; the two sum in
+    another order).  bfloat16: ``2**-7 |want| + 2**-10 (P |v|)``, where
+    ``P |v|`` is the attention of the same rows over ``|v|``.  Both
+    versions compute in float32 and round to bfloat16 once, so they differ
+    by one bf16 ulp (at most ``2**-7 |want|``) where their float32 results
+    straddle a rounding boundary; K3 also rounds p to TF32 (2**-11
+    relative) in p.v, which moves an output by at most ``2**-11 (P |v|)``
+    however much its terms cancel.  A fault that changes a row's softmax
+    (a dropped key tile, a missed rescale) moves its outputs by far more."""
+    if want.dtype == torch.float32:
+        return torch.full_like(want, 1e-5)
+    mass = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    return want.float().abs() * 2.0 ** -7 + mass * 2.0 ** -10
+
+
+@lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attn")
+    lib.repro_flash_attention.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.repro_flash_attention.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, softcap: float | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention forward; K3 on the card, the plain version on the
+    CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
+                                   causal=causal)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, S, H, hd) and k, v (B, T, KVH, hd)")
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes float32/bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} KV heads")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    build.check_tensor(q, "q", q.device)
+    build.check_tensor(k, "k", q.device, q.dtype, (b, t, kvh, hd))
+    build.check_tensor(v, "v", q.device, q.dtype, (b, t, kvh, hd))
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    lib = _lib()
+    code = lib.repro_flash_attention(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, s, t, h,
+        kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
+        float(softcap or 0.0), int(causal), build.stream(q.device))
+    build.check(lib, code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -194,7 +194,7 @@ def stream_collide_tiles(f, node_types, neighbors, lat: Lattice,
     t1, q, n = f.shape
     if q != lat.q or n != a ** 3:
         raise ValueError(f"f must be (T+1, Q={lat.q}, n={a ** 3}), got {tuple(f.shape)}")
-    if f.dtype not in build.DTYPE_CODES:
+    if f.dtype not in build.LBM_DTYPES:
         raise TypeError(f"stream_collide_tiles takes float32/float64, got {f.dtype}")
     if n < 8 or 256 % n:
         raise ValueError(f"the kernel takes tiles of 8, 64 or 256 nodes, got {n}")

@@ -8,7 +8,10 @@ one, run them with
 (the kernels build into build/repro_torch/ at first use).  Tolerances:
 1e-12 in float64 and 1e-5 in float32 on values of order 0.1 — the kernels
 sum in another order than the plain versions.  Collision outputs are
-compared at fluid slots.
+compared at fluid slots.  K3 (flash attention) on unit-normal inputs,
+element by element within ``kernels.flash.error_bound``: 1e-5 in float32;
+in bfloat16 2**-7 |plain| + 2**-10 (P |v|), one bf16 ulp of each output
+plus K3's TF32 rounding of p, bounded by the same attention over |v|.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro_torch.core.lattice import get_lattice
 from repro_torch.core.tiling import SOLID, tile_geometry
 from repro_torch.data.geometry import duct_wrap, random_spheres
 from repro_torch.kernels import collide as k2
+from repro_torch.kernels import flash as k3
 from repro_torch.kernels import stream_collide as k1
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +119,48 @@ def test_fused_engine_matches_gather_with_k2(dev):
     fluid = ~e_f._solid[None]
     diff = (e_f.backend.canonical(e_f.f) - e_g.backend.canonical(e_g.f)).abs()
     assert float(diff[fluid.expand_as(diff)].max()) <= 1e-12
+
+
+def _qkv(dev, dtype, b, s, t, h, kvh, hd, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, t, kvh, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, t, kvh, hd, generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", k3.HEAD_DIMS)
+@pytest.mark.parametrize("h,kvh,s,t,softcap,causal", [
+    (4, 2, 200, 200, None, True),       # ragged last q block and key tile
+    (4, 4, 64, 64, 30.0, True),
+    (6, 2, 70, 130, None, False),       # S != T
+    (3, 1, 1, 33, 20.0, True),
+])
+def test_k3_matches_plain(dev, dtype, hd, h, kvh, s, t, softcap, causal):
+    q, k, v = _qkv(dev, dtype, 2, s, t, h, kvh, hd)
+    before = k3.flash_attention.launches
+    got = k3.flash_attention(q, k, v, softcap=softcap, causal=causal)
+    torch.cuda.synchronize()
+    assert k3.flash_attention.launches == before + 1
+    kw = dict(softcap=softcap, causal=causal)
+    want = k3.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    bound = k3.error_bound(q, k, v, want, **kw)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_k3_rejects_what_it_cannot_take(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 16)
+    with pytest.raises(TypeError):
+        k3.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        k3.flash_attention(*_qkv(dev, torch.float32, 1, 8, 8, 4, 2, 24))
+    with pytest.raises(ValueError):
+        k3.flash_attention(*_qkv(dev, torch.float32, 1, 8, 8, 3, 2, 16))
+    with pytest.raises(ValueError):
+        k3.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        k3.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        k3.flash_attention(q, k.bfloat16(), v)
