@@ -28,6 +28,7 @@ import torch
 from .core.boundary import BoundarySpec
 from .core.collision import CollisionConfig
 from .core.engine import LBMConfig, SparseTiledLBM
+from .device import resolve_device
 from .models.config import ModelConfig
 from .models.model import CausalLM
 
@@ -109,8 +110,9 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
-                             device="cpu") -> CausalLM:
-    """A port model on ``device`` holding the reference's parameters."""
+                             device=None) -> CausalLM:
+    """A port model on ``device`` (None: the card) holding the reference's
+    parameters."""
     model = CausalLM(cfg, device=device, seed=None)
     seen = set()
     with torch.no_grad():
@@ -163,9 +165,11 @@ def lm_params_to_reference(model: CausalLM) -> dict:
     return out
 
 
-def lm_cache_from_reference(cache_np: dict, device="cpu") -> dict:
-    """A reference KV cache (numpy) as the port's, on ``device``."""
-    return {"layers": {k: _tensor(cache_np["layers"][k]).to(device)
+def lm_cache_from_reference(cache_np: dict, device=None) -> dict:
+    """A reference KV cache (numpy) as the port's, on ``device`` (None: the
+    card)."""
+    dev = resolve_device(device)
+    return {"layers": {k: _tensor(cache_np["layers"][k]).to(dev)
                        for k in ("k", "v")}}
 
 

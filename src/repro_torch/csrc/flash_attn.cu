@@ -10,32 +10,43 @@
 // 1, and the output is cast to the input type.
 //
 // What differs from the TPU version:
-// - GQA: query head h reads K/V of KV head h / (H / KVH) directly; the
+// - GQA: query head h reads K/V of KV head h / (H / KVH) in place; the
 //   Pallas wrapper materialises repeat(k, G) in device memory instead.
 // - Any S and T: the ragged last query block and key tile are masked here,
 //   where the Pallas version asserts S % bq == 0 and T % bk == 0.
 // - Blocks run in parallel in no order, so each block owns one (batch,
-//   query head, 64-row query block) and loops over key tiles itself; the
-//   causal loop stops at the block's last row, and the heaviest causal
-//   blocks are scheduled first.
+//   query head, query block) and loops over key tiles itself; the causal
+//   loop stops at the block's last row, and the heaviest causal blocks are
+//   scheduled first.
 //
 // Bound on the H100: operations.  At prefill shapes (S = 2048, hd = 128)
 // the two products do ~S/2 multiply-adds per byte of q, k, v and out, far
-// above the card's ratio of flops to bytes, so the kernel's business is to
-// keep the products on the tensor cores and the logits out of device
-// memory.  Two kernels, one contract:
-// - bfloat16 with hd >= 16 (the serving path): mma.sync tensor-core
-//   products, four warps per 64-row query block, K/V tiles in shared memory
-//   (see the tc namespace below).  Synchronous tile loads, no TMA, no wgmma
-//   and no warp specialisation yet: that redesign is later work.
-// - float32, and hd = 8: the products on the float32 FMA pipes (67 TFLOP/s):
-//   a 64 x 64 logits tile per block of 128 threads, each thread holding an
-//   8 x 4 block of logits and an 8 x hd/16 block of the output in
-//   registers; Q (scaled, float32), K and V staged in shared memory with
-//   rows padded so the column-parallel reads hit distinct banks.  The 16
-//   threads that share a row group form a half-warp, so row max and row
-//   sum are warp shuffles and P passes through shared memory without a
-//   block barrier.
+// above the card's ratio of flops to bytes (~295 bf16 flops per byte), so
+// the kernel's business is to keep the tensor cores fed and the logits out
+// of device memory.  Which kernel takes which (dtype, hd):
+// - bfloat16, hd in {64, 128, 256} (the serving path: every dense-global
+//   config has hd 128): the Hopper kernel (namespace hopper).  128 query
+//   rows per block in two consumer warpgroups of 64 rows and one producer
+//   warpgroup (384 threads, setmaxnreg 24 / 240); Q loaded once and K/V
+//   through a 2-stage ring of 128-key tiles (64 at hd 256) by TMA with
+//   128-byte swizzle, each stage guarded by full/empty mbarriers; both
+//   products on wgmma (S = Q K^T from shared memory, O += P V with P in
+//   registers), the softmax of one tile overlapping the P V product of the
+//   previous, and the two consumer warpgroups taking turns at the tensor
+//   cores.  p is rounded to bfloat16 for P V (the row sum l keeps the
+//   float32 values), as FlashAttention-3 and the reference's dense path do.
+// - bfloat16, hd in {16, 32}: mma.sync tensor-core products, four warps per
+//   64-row query block, synchronous K/V tile loads (namespace tc); p.v in
+//   TF32.
+// - float32 (whose 1e-5 tolerance rules out TF32), and hd = 8: the products
+//   on the float32 FMA pipes (67 TFLOP/s): a 64 x 64 logits tile per block
+//   of 128 threads, each thread holding an 8 x 4 block of logits and an
+//   8 x hd/16 block of the output in registers; Q (scaled, float32), K and V
+//   staged in shared memory with rows padded so the column-parallel reads
+//   hit distinct banks.  The 16 threads that share a row group form a
+//   half-warp, so row max and row sum are warp shuffles and P passes
+//   through shared memory without a block barrier.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -225,7 +236,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16, hd >= 16: the two products on the tensor cores (mma.sync).
+// bfloat16, hd in {16, 32}: the two products on the tensor cores (mma.sync).
 //
 // Four warps per 64-row query block, 16 rows each.  Logits: m16n8k16 bf16
 // products of Q and K (exact products, float32 sums), then scaled in
@@ -240,7 +251,7 @@ namespace tc {
 
 template <int HD>
 struct Cfg {
-  static constexpr int BK = HD >= 256 ? 32 : 64;   // keys per tile
+  static constexpr int BK = 64;                    // keys per tile
   static constexpr int LD = HD + 8;                // row stride (bf16): 16 B pad
   static constexpr size_t bytes = sizeof(__nv_bfloat16) * (BQ + 2 * BK) * LD;
 };
@@ -419,6 +430,630 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace tc
 
+// --------------------------------------------------------------------------
+// bfloat16, hd in {64, 128, 256}: the Hopper kernel (TMA, mbarriers, wgmma,
+// warp specialisation).
+//
+// Block: 128 query rows of one (batch, query head), 384 threads in three
+// warpgroups.  Warpgroup 0 is the producer: it gives up registers
+// (setmaxnreg 24) and one of its threads issues every TMA load.
+// Warpgroups 1 and 2 are the consumers, 64 query rows each (setmaxnreg
+// 240).
+//
+// Shared memory: Q (128 rows, loaded once) and a ring of STAGES = 2 K
+// tiles and 2 V tiles of BK keys.  Every tile is stored as hd / 64 column
+// chunks of 64 bf16 (128 bytes) per row, the layout of TMA's 128-byte
+// swizzle, which is also the layout wgmma reads (see smem_desc).  Each
+// stage has a "full" barrier (the producer's arrive.expect_tx, completed
+// by the TMA's bytes) and an "empty" barrier (one arrival from each of the
+// 8 consumer warps once the wgmma that read the tile has finished), for K
+// and V apart: K is free as soon as S = Q K^T is done, V only after
+// O += P V, so the producer loads K one tile ahead of V.
+//
+// A consumer warpgroup runs, for key tile j:
+//   S_j = Q K_j^T            wgmma m64nBKk16, both operands in shared memory
+//   O += P_{j-1} V_{j-1}     wgmma m64nHDk16, P in registers, V MN-major
+//   softmax of S_j (while the second product runs), then O *= alpha_j and
+//   P_j = bf16(exp2(S_j - m_j)) in registers, the A fragments of the next
+//   product (the accumulator of one product is the register A operand of
+//   the next with no shuffle).
+// The two consumer warpgroups take turns issuing their two products
+// (named barriers 1 and 2), so one's softmax runs while the tensor cores
+// work on the other's products.  Row max and row sum are reduced over the
+// 4 threads that hold a row; l sums the float32 probabilities and p is
+// rounded to bfloat16 for P V, as the reference's dense path does.  Tiles
+// below the diagonal skip the mask; the loop stops at the block's
+// diagonal.  Registers: 168 per thread at launch; ptxas fits the
+// consumers in 240 with no spill at hd 64, 128 and 256.
+// --------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int BQ = 128;          // query rows per block
+constexpr int NT = 384;          // threads per block
+constexpr int STAGES = 2;        // K/V ring depth
+constexpr int CW = 64;           // columns per 128-byte swizzle chunk
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD >= 256 ? 64 : 128;              // keys per tile
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;                 // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // Q, K ring, V ring, 1 + 4 * STAGES barriers, 1 KB to align the base
+  static constexpr size_t bytes = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Every lane calls it; the lanes with `pred` arrive (a predicated arrive,
+// not a branch, so the warp stays converged around its wgmmas).
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
+// Returns once the phase of parity `phase` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted on
+// the barrier in bytes.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t bar, uint32_t dst,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
+// address >> 4 (bits 0-13), leading byte offset >> 4 (16-29), stride byte
+// offset >> 4 (32-45), layout type 1 = SWIZZLE_128B (62-63).  K-major
+// operands (Q, K: rows of 128 bytes along hd) step 8-row groups by the
+// stride offset (1024 B) and ignore the leading offset; the MN-major V
+// steps 8-key groups by the stride offset (1024 B) and 64-column chunks of
+// hd by the leading offset (one chunk = BK rows of 128 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait that releases them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D (64 x N, float32 in registers) = or += A (64 x 16) B (16 x N).
+// wgmma_ss: A and B K-major in shared memory; scale_d = 0 overwrites D.
+// wgmma_rs: A in registers (the m16n8k16 A fragment of this warp's 16
+// rows), B MN-major in shared memory (transpose bit set); accumulates.
+// The accumulator of thread (warp w, lane 4g + t) holds, at index
+// 4j + e, row 16w + g + 8(e / 2), column 8j + 2t + e % 2.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x in one special-function instruction; results below 2^-126 flush to
+// 0 (exp2f also handles subnormal results, at extra instructions).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads), 256 threads: the two
+// consumer warpgroups take turns issuing their wgmmas.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// S = Q K_j^T for this warpgroup's 64 rows: HD / 16 k-steps, each 32 bytes
+// further into a 128-byte swizzled row (a new column chunk every 4 steps).
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::BK / 2], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  constexpr int BK = Cfg<HD>::BK;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss(s, smem_desc(q_rows + (kk / 4) * BQ * 128 + off, 16, 1024),
+             smem_desc(k_tile + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V_j: BK / 16 k-steps of 16 keys (2048 bytes of V each).
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&p)[Cfg<HD>::BK / 16][4],
+                                         uint32_t v_tile) {
+  constexpr int BK = Cfg<HD>::BK;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
+}
+
+// Online softmax of one tile in place: the raw sums s become
+// p = exp2(x - m), x the scaled (and capped) logit in log2 units, masked to
+// -inf where the key is past T or (causal) past the row; m and l (this
+// thread's part of the row sum) move on, alpha is the rescale of earlier
+// terms.  Row r of the thread is row[r]; column of s[i] is
+// k0 + 8 (i / 4) + 2t + i % 2.
+template <int NS, bool MASK, bool CAUSAL, bool SOFTCAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, const int (&row)[2],
+                                             int t, int Tk, float scale_log2, float scale,
+                                             float cap) {
+  float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    float x;
+    if constexpr (SOFTCAP)
+      x = cap * tanhf(s[i] * scale / cap) * LOG2E;
+    else
+      x = s[i] * scale_log2;
+    if constexpr (MASK) {
+      const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (!(k_pos < Tk && (!CAUSAL || k_pos <= row[r]))) x = -CUDART_INF_F;
+    }
+    s[i] = x;
+    mt[r] = fmaxf(mt[r], x);
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m[r], mt[r]);
+    m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;   // nothing visible yet
+    alpha[r] = ex2(m[r] - m_use[r]);
+    m[r] = m_new;
+  }
+  float ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(s[i] - m_use[r]);
+    ls[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+}
+
+template <int NS, bool CAUSAL, bool SOFTCAP>
+__device__ __forceinline__ void softmax_any(bool mask, float (&s)[NS], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2], int k0,
+                                            const int (&row)[2], int t, int Tk,
+                                            float scale_log2, float scale, float cap) {
+  if (mask)
+    softmax_tile<NS, true, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, scale_log2,
+                                            scale, cap);
+  else
+    softmax_tile<NS, false, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, scale_log2,
+                                             scale, cap);
+}
+
+// p in bfloat16 as the A fragments of P V: the accumulator entries
+// 8kk .. 8kk + 7 are keys 16kk .. 16kk + 15 in the fragment's order.
+template <int NS>
+__device__ __forceinline__ void to_bf16(const float (&s)[NS], uint32_t (&p)[NS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// q, out: (B, S, H, HD); k, v: (B, Tk, KVH, HD); bf16, described by the
+// tensor maps (see encode).  1-D grid of ceil(S / BQ) * H * B blocks, the
+// last query blocks (the heaviest under the causal mask) first.
+template <int HD, bool CAUSAL, bool SOFTCAP>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out, int S, int Tk, int H, int KVH,
+                       int B, float scale, float cap) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK, NCH = HD / CW;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;   // swizzle atoms: 1 KB
+  const uint32_t k_s = q_s + C::Q_BYTES;                         // + stage * KV_BYTES
+  const uint32_t v_s = k_s + STAGES * C::KV_BYTES;
+  const uint32_t bars = q_s + C::BAR_OFF;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + STAGES + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * STAGES + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * STAGES + st); };
+
+  const int nqb = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (H * B);
+  const int qb = nqb - 1 - blockIdx.x / (H * B);
+  const int h = bh % H, b = bh / H;
+  const int kvh = h / (H / KVH);
+  const int q0 = qb * BQ;
+  const int k_end = CAUSAL ? min(Tk, min(q0 + BQ, S)) : Tk;   // keys any row sees
+  const int n_tiles = (k_end + BK - 1) / BK;
+  // the warpgroup's role, through a shuffle so the compiler sees it is
+  // uniform across each warp (wgmma needs converged warps)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);     // one arrival per consumer warp
+      mbar_init(v_empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < NCH; ++c) tma_load(&tm_q, q_full, q_s + c * BQ * 128, c * CW, h, q0, b);
+      auto load_k = [&](int j) {
+        const int st = j % STAGES;
+        mbar_wait(k_empty(st), ((j / STAGES) & 1) ^ 1);   // passes on the first round
+        mbar_expect_tx(k_full(st), C::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(&tm_k, k_full(st), k_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
+                   j * BK, b);
+      };
+      auto load_v = [&](int j) {
+        const int st = j % STAGES;
+        mbar_wait(v_empty(st), ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(v_full(st), C::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(&tm_v, v_full(st), v_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
+                   j * BK, b);
+      };
+      // K runs one tile ahead of V: S_{j+1} needs K_{j+1} before P_j V_j
+      // needs V_j, and a V slot frees only after the P V product that read it
+      if (n_tiles > 0) load_k(0);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) load_k(j + 1);
+        load_v(j);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x % 32;
+    const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0);
+    const int t = lane & 3;
+    const int row0 = q0 + 64 * (wg - 1);                      // this warpgroup's first row
+    const int row[2] = {row0 + 16 * warp + (lane >> 2), row0 + 16 * warp + (lane >> 2) + 8};
+    // both warpgroups run every tile of the block (a tile that none of a
+    // warpgroup's rows sees leaves its m, l and O as they were), so their
+    // turns at the tensor cores alternate one for one
+    if (wg == 2) named_arrive(1);             // warpgroup 1 issues first
+    // tiles from here on need the mask: the ragged key tile, the diagonal
+    const int first_masked = CAUSAL ? min(Tk / BK, (row0 + 1) / BK) : Tk / BK;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t q_rows = q_s + (wg - 1) * 64 * 128;
+    auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
+
+    float o[HD / 2], s[BK / 2], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    float alpha[2];
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+    // n_tiles >= 1: S >= 1 and T >= 1 (T = 0 never launches)
+    mbar_wait(q_full, 0);
+    {
+      mbar_wait(k_full(0), 0);
+      named_sync(wg);
+      wgmma_fence();
+      issue_qk<HD>(s, q_rows, k_s);
+      wgmma_commit();
+      named_arrive(3 - wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(k_empty(0));
+      softmax_any<BK / 2, CAUSAL, SOFTCAP>(first_masked <= 0, s, m, l, alpha, 0, row, t, Tk,
+                                           scale_log2, scale, cap);
+      to_bf16(s, p);
+    }
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % STAGES, prev = (j - 1) % STAGES;
+      mbar_wait(k_full(st), (j / STAGES) & 1);
+      mbar_wait(v_full(prev), ((j - 1) / STAGES) & 1);
+      named_sync(wg);
+      wgmma_fence();                      // p and o were written by ordinary code
+      issue_qk<HD>(s, q_rows, k_s + st * C::KV_BYTES);
+      wgmma_commit();
+      issue_pv<HD>(o, p, v_s + prev * C::KV_BYTES);
+      wgmma_commit();
+      named_arrive(3 - wg);
+      wgmma_wait<1>();                    // S_j is done; P_{j-1} V_{j-1} may still run
+      fence_regs(s);
+      release(k_empty(st));
+      softmax_any<BK / 2, CAUSAL, SOFTCAP>(j >= first_masked, s, m, l, alpha, j * BK, row, t,
+                                           Tk, scale_log2, scale, cap);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      release(v_empty(prev));
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      to_bf16(s, p);
+    }
+    {
+      const int j = n_tiles - 1, st = j % STAGES;
+      mbar_wait(v_full(st), (j / STAGES) & 1);
+      named_sync(wg);
+      wgmma_fence();
+      issue_pv<HD>(o, p, v_s + st * C::KV_BYTES);
+      wgmma_commit();
+      if (wg == 1) named_arrive(2);       // warpgroup 2 issues last
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(v_empty(st));
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      inv[r] = 1.f / (lr == 0.f ? 1.f : lr);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= S) continue;
+      __nv_bfloat16* o_row = out + ((static_cast<long long>(b) * S + row[r]) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+// ---- host side: tensor maps and the launch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the
+// library links no libcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 (B, rows, heads, HD) tensor as the 4-D map (HD, heads,
+// rows, B) with the real strides (so GQA reads K/V heads in place), boxes
+// of 64 columns x 1 head x box_rows rows x 1 batch, 128-byte swizzle, and
+// zeros for rows past the end.
+inline bool encode(CUtensorMap* map, const void* base, int hd, int heads, int rows, int batch,
+                   int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row_bytes = 2ull * hd;
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CW), 1u, static_cast<cuuint32_t>(box_rows),
+                             1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
+           int KVH, float scale, bool causal, bool softcap, float cap, cudaStream_t stream) {
+  if (Tk == 0)   // no keys: every row has l == 0 and gives zeros
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, sizeof(__nv_bfloat16) * B * S * H * HD, stream));
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, HD, H, S, B, BQ) || !encode(&tk, k, HD, KVH, Tk, B, Cfg<HD>::BK) ||
+      !encode(&tv, v, HD, KVH, Tk, B, Cfg<HD>::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_flag(causal, [&](auto CAUSAL) {
+    return with_flag(softcap, [&](auto SOFTCAP) {
+      auto kernel =
+          flash_fwd_wgmma_kernel<HD, decltype(CAUSAL)::value, decltype(SOFTCAP)::value>;
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Cfg<HD>::bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int blocks = (S + BQ - 1) / BQ * H * B;
+      kernel<<<blocks, NT, Cfg<HD>::bytes, stream>>>(tq, tk, tv,
+                                                     static_cast<__nv_bfloat16*>(out), S, Tk,
+                                                     H, KVH, B, scale, cap);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
+}
+
+}  // namespace hopper
+
 template <typename T, typename Kernel>
 int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
         void* out, int B, int S, int Tk, int H, int KVH, float scale, float cap,
@@ -433,24 +1068,29 @@ int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 with hd >= 16 takes the tensor-core kernel; float32 (whose
-// tolerance TF32 would not meet) and hd = 8 the FMA kernel.
+// bfloat16 with hd >= 64 takes the Hopper kernel, with hd 16 or 32 the
+// mma.sync kernel; float32 (whose tolerance TF32 would not meet) and hd = 8
+// the FMA kernel.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Tk, int H, int KVH, float scale, bool causal, bool softcap,
            float cap, cudaStream_t stream) {
-  return with_flag(causal, [&](auto CAUSAL) {
-    return with_flag(softcap, [&](auto SOFTCAP) {
-      constexpr bool kCausal = decltype(CAUSAL)::value;
-      constexpr bool kSoftcap = decltype(SOFTCAP)::value;
-      if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 16)
-        return run<T>(tc::flash_fwd_mma_kernel<HD, kCausal, kSoftcap>, tc::Cfg<HD>::bytes,
-                      q, k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
-      else
-        return run<T>(flash_fwd_kernel<T, HD, kCausal, kSoftcap>, Smem<T, HD>::bytes, q,
-                      k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 64)
+    return hopper::launch<HD>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                              stream);
+  else
+    return with_flag(causal, [&](auto CAUSAL) {
+      return with_flag(softcap, [&](auto SOFTCAP) {
+        constexpr bool kCausal = decltype(CAUSAL)::value;
+        constexpr bool kSoftcap = decltype(SOFTCAP)::value;
+        if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 16)
+          return run<T>(tc::flash_fwd_mma_kernel<HD, kCausal, kSoftcap>, tc::Cfg<HD>::bytes,
+                        q, k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
+        else
+          return run<T>(flash_fwd_kernel<T, HD, kCausal, kSoftcap>, Smem<T, HD>::bytes, q,
+                        k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
+      });
     });
-  });
 }
 
 template <typename T>

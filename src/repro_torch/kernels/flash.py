@@ -13,8 +13,10 @@ On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
 (bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
 it runs :func:`flash_attention_ref`.  In bfloat16 (hd >= 16) the kernel
 runs both products on the tensor cores: q.k as exact bf16 products summed
-in float32, then scaled in float32, and p.v with p rounded to TF32 (10
-mantissa bits); elsewhere it computes in float32 throughout.
+in float32, then scaled in float32; for p.v, at hd 64, 128 and 256 (the
+Hopper kernel: TMA, wgmma, warp-specialised) p is rounded to bfloat16 as
+the reference's dense path does, at hd 16 and 32 (the mma.sync kernel) to
+TF32.  In float32, and at hd 8, it computes in float32 throughout.
 """
 from __future__ import annotations
 
@@ -60,18 +62,23 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v, **kw)``, element by element (float32, ``want``'s shape).
 
     float32: 1e-5 absolute (outputs of order 1 at most; the two sum in
-    another order).  bfloat16: ``2**-7 |want| + 2**-10 (P |v|)``, where
+    another order).  bfloat16: ``2**-7 |want| + 2**-7 (P |v|)``, where
     ``P |v|`` is the attention of the same rows over ``|v|``.  Both
     versions compute in float32 and round to bfloat16 once, so they differ
     by one bf16 ulp (at most ``2**-7 |want|``) where their float32 results
-    straddle a rounding boundary; K3 also rounds p to TF32 (2**-11
-    relative) in p.v, which moves an output by at most ``2**-11 (P |v|)``
-    however much its terms cancel.  A fault that changes a row's softmax
-    (a dropped key tile, a missed rescale) moves its outputs by far more."""
+    straddle a rounding boundary.  K3 also rounds each unnormalised
+    probability to bfloat16 before p.v, as the reference's dense path
+    does, while it sums the row's l from the float32 values: a relative
+    error of at most the unit roundoff 2**-8 on every term, so an output
+    ``sum_j p_j v_j`` moves by at most ``2**-8 sum_j p_j |v_j| = 2**-8
+    (P |v|)`` however much its terms cancel; the bound doubles that, as it
+    doubles the half-ulp of the output rounding.  A fault that changes a
+    row's softmax (a dropped key tile, a missed rescale) moves its outputs
+    by far more."""
     if want.dtype == torch.float32:
         return torch.full_like(want, 1e-5)
     mass = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
-    return want.float().abs() * 2.0 ** -7 + mass * 2.0 ** -10
+    return (want.float().abs() + mass) * 2.0 ** -7
 
 
 @lru_cache(maxsize=None)
