@@ -19,12 +19,15 @@ Phases (any failure exits non-zero and prints no result line):
 4. drive the main path at full size: ``make_case("spheres", scale=4)``
    (258 x 258 x 256, 236,017 tiles) with ``backend="fused"`` and NEBB
    inlet/outlet, LBGK incompressible, in float64 and float32, timed with
-   CUDA events; the rw_only variant (paper §4.1, the bandwidth ceiling);
-   then the fused engine against the gather engine with the collision
-   kernel after 10 float64 steps.  Launch counters are zeroed just before
-   each run and read just after; each kernel of the run must have
-   launched once per step.  At the main path's shapes each kernel is held
-   against its plain version and timed, beside its bound;
+   CUDA events; the rw_only variant (paper §4.1, the bandwidth ceiling) in
+   float64 and float32: K1 bit for bit against its plain version, then K1
+   and ``Tensor.copy_`` of the same rows timed in turns (5 rounds x 20
+   launches, medians); then the fused engine against the gather engine
+   with the collision kernel after 10 float64 steps.
+   Launch counters are zeroed just before each run and read just after;
+   each kernel of the run must have launched once per step.  At the main
+   path's shapes each kernel is held against its plain version and timed,
+   beside its bound;
 5. hold the flash-attention kernel K3 against its plain version on
    seeded unit-normal inputs: B in {1, 2} x (H, KVH) in {(4, 4), (4, 2),
    (24, 2)} x hd in {16, 64, 128, 256} x softcap in {None, 30} x causal
@@ -101,6 +104,8 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 STEPS = 100
 WARM = 20
 PARITY_STEPS = 10
+# rw_only: rounds x launches of the kernel and copy_ in turns
+ROUNDS, REPS = 5, 20
 SOURCE = "src/repro_torch/csrc"
 # the serving run
 ARCH = "starcoder2-3b"
@@ -136,6 +141,44 @@ def time_ms(fn, reps: int, warm: int = 2, label: str = "") -> float:
         log(f"[time] {label}: median {np.median(times):.4f} ms, p80 "
             f"{np.percentile(times, 80):.4f} ms over {reps} launches")
     return float(np.median(times))
+
+
+def interleaved_ms(fns: dict, warm: int = 2) -> dict[str, float]:
+    """Median milliseconds per call of each of ``fns``, timed in turns:
+    ``ROUNDS`` rounds, each running every function ``REPS`` times with a
+    CUDA event after each call, the order reversed every other round, so
+    that a drift of the host or the clocks favours none of them."""
+    for fn in fns.values():
+        for _ in range(warm):
+            fn()
+    names, samples = list(fns), {name: [] for name in fns}
+    for r in range(ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(REPS + 1)]
+            events[0].record()
+            for ev in events[1:]:
+                fns[name]()
+                ev.record()
+            events[-1].synchronize()
+            samples[name] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def rw_only_design(f: torch.Tensor, out: torch.Tensor, nbytes: int) -> str:
+    """Which kernel K1's rw_only copy of ``nbytes`` from ``f`` into ``out``
+    launches, and its shape, as ``csrc/stream_collide.cu`` chooses them:
+    the bulk ring (its ``CHUNKS`` chunks of ``CHUNK`` bytes per one-warp
+    block, read from the source) when the two are aligned alike mod 16,
+    else the register kernel."""
+    if f.data_ptr() % 16 != out.data_ptr() % 16:
+        return "vector (register kernel, f and out aligned unlike mod 16)"
+    src = (ROOT / SOURCE / "stream_collide.cu").read_text()
+    chunk, chunks = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                     for k in ("CHUNK", "CHUNKS"))
+    grid = -(-nbytes // (chunk * chunks))
+    return (f"bulk ring, {chunks} chunks of {chunk} B in flight per one-warp "
+            f"block, grid {grid}")
 
 
 def collision_flops_per_node(q: int, e: np.ndarray, mrt: bool) -> int:
@@ -351,7 +394,9 @@ class Smoke:
         steps — device kernels per step, device busy time (union of kernel
         and memory-op intervals), K1's part of it, and the host's top-level
         torch ops per step.  The idle share is against the unprofiled step
-        time ``sec_per_step``."""
+        time ``sec_per_step``.  K1's time is per launch over the launches
+        the trace holds, and their count is logged: a trace can miss a
+        kernel's record, and the busy time then misses its time too."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -367,7 +412,7 @@ class Smoke:
         for start, stop, _ in dev:             # union of device intervals (us)
             busy += max(0.0, stop - max(start, end))
             end = max(end, stop)
-        k1 = sum(b - a for a, b, name in dev if "stream_collide_kernel" in name)
+        k1 = [b - a for a, b, name in dev if "stream_collide_kernel" in name]
         host_ops = [e for e in events if e.device_type == DeviceType.CPU
                     and e.name.startswith("aten::") and e.cpu_parent is None]
         if not dev:
@@ -378,7 +423,8 @@ class Smoke:
         busy_ms = busy / 1e3 / steps
         log(f"[profile {eng.cfg.dtype}] per step: {len(dev) / steps:.1f} device "
             f"ops, device busy {busy_ms:.4f} ms of {step_ms:.4f} ms (idle share "
-            f"{1 - busy_ms / step_ms:.3f}), K1 {k1 / 1e3 / steps:.4f} ms, "
+            f"{1 - busy_ms / step_ms:.3f}), K1 {sum(k1) / 1e3 / max(len(k1), 1):.4f} "
+            f"ms per launch over the {len(k1)} of {steps} launches traced, "
             f"{len(host_ops) / steps:.1f} top-level host torch ops")
 
     def run_fused(self, case, dtype: str) -> None:
@@ -437,8 +483,8 @@ class Smoke:
             f"(bound {bms:.4f} ms by {by}, {bms / ms:.3f} of it), plain "
             f"{plain_ms:.2f} ms")
 
-    def run_rw_only(self, case) -> None:
-        eng = self._engine(case, "float64", backend="fused", kernel_mode="rw_only")
+    def run_rw_only(self, case, dtype: str) -> None:
+        eng = self._engine(case, dtype, backend="fused", kernel_mode="rw_only")
         eng.run(WARM)
         eng.reset()
         seconds, launches = self._main_run(eng, STEPS)
@@ -448,23 +494,34 @@ class Smoke:
         out = b.other(f)
         args = (f, b._types, b._nbrs, eng.lat, eng.cfg.collision, 4, None, "rw_only")
         got = k1.stream_collide_tiles(*args, out=out).clone()
-        err = max_err(got, k1.stream_collide_tiles_ref(*args))
-        if err != 0.0:
-            raise AssertionError(f"K1 rw_only vs plain: {err}")
+        torch.cuda.synchronize()
+        want = k1.stream_collide_tiles_ref(*args)
+        bits = torch.int64 if eng.dtype == torch.float64 else torch.int32
+        if not torch.equal(got.view(bits), want.view(bits)):
+            raise AssertionError(f"K1 rw_only {dtype} differs from its plain "
+                                 f"version: max |err| {max_err(got, want)}")
+        err = max_err(got, want)
+        del got, want
         t = eng.tiling.num_tiles
-        ms = time_ms(lambda: k1.stream_collide_tiles(*args, out=out), 50,
-                     label="K1 rw_only float64")
+        med = interleaved_ms({"kernel": lambda: k1.stream_collide_tiles(*args, out=out),
+                              "copy_": lambda: out[:t].copy_(f[:t])})
+        ms, lib_ms = med["kernel"], med["copy_"]
         plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 5,
-                           label="K1 rw_only plain")
-        lib_ms = time_ms(lambda: out[:t].copy_(f[:t]), 50, label="copy_")
+                           label=f"K1 rw_only plain {dtype}")
         nbytes = 2 * f[:t].numel() * f.element_size()
         bms, by = bound(nbytes, 0, eng.dtype)
         sec = seconds / STEPS
-        log(f"[main fused rw_only float64] {STEPS} steps in {seconds:.4f} s, "
-            f"{nbytes / sec / 1e9:.1f} GB/s moved; kernel {ms:.4f} ms/launch, "
-            f"copy_ {lib_ms:.4f} ms, bound {bms:.4f} ms")
-        self.kernels["stream_collide_tiles[rw_only]"] = {
-            "name": "stream_collide_tiles[rw_only]", "route": "cuda",
+        log(f"[main fused rw_only {dtype}] {STEPS} steps in {seconds:.4f} s, "
+            f"{nbytes / sec / 1e9:.1f} GB/s moved; design "
+            f"{rw_only_design(f, out, nbytes // 2)}; "
+            f"kernel {ms:.4f} ms/launch, copy_ {lib_ms:.4f} ms (medians of "
+            f"{ROUNDS} rounds x {REPS} launches in turns), kernel/copy_ "
+            f"{ms / lib_ms:.4f}; bound {bms:.4f} ms by {by}: kernel {bms / ms:.4f} "
+            f"of it, copy_ {bms / lib_ms:.4f}")
+        name = "stream_collide_tiles[rw_only]" + ("" if dtype == "float64"
+                                                  else f"[{dtype}]")
+        self.kernels[name] = {
+            "name": name, "route": "cuda",
             "source": f"{SOURCE}/stream_collide.cu",
             "replaces": "src/repro/kernels/stream_collide.py:231",
             "launches": launches["stream_collide_tiles"], "max_abs_err": err,
@@ -530,8 +587,9 @@ class Smoke:
         for dtype in ("float64", "float32"):
             self.run_fused(case, dtype)
             torch.cuda.empty_cache()
-        self.run_rw_only(case)
-        torch.cuda.empty_cache()
+        for dtype in ("float64", "float32"):
+            self.run_rw_only(case, dtype)
+            torch.cuda.empty_cache()
         self.fused_vs_gather(case)
         log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

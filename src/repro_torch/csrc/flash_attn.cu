@@ -51,6 +51,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -484,44 +485,6 @@ struct Cfg {
   static constexpr size_t bytes = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Every lane calls it; the lanes with `pred` arrive (a predicated arrive,
-// not a branch, so the warp stays converged around its wgmmas).
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(static_cast<uint32_t>(pred))
-      : "memory");
-}
-
-// Returns once the phase of parity `phase` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(phase)
-      : "memory");
-}
-
 // One box of a 4-D tensor map into shared memory; completion is counted on
 // the barrier in bytes.
 __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t bar, uint32_t dst,
@@ -849,7 +812,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(k_empty(st), 8);     // one arrival per consumer warp
       mbar_init(v_empty(st), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

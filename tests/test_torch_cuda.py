@@ -8,8 +8,9 @@ one, run them with
 (the kernels build into build/repro_torch/ at first use).  Tolerances:
 1e-12 in float64 and 1e-5 in float32 on values of order 0.1 — the kernels
 sum in another order than the plain versions.  Collision outputs are
-compared at fluid slots.  K3 (flash attention) on unit-normal inputs,
-element by element within ``kernels.flash.error_bound``: 1e-5 in float32;
+compared at fluid slots; K1's rw_only mode bit for bit.  K3 (flash
+attention) on unit-normal inputs, element by element within
+``kernels.flash.error_bound``: 1e-5 in float32;
 in bfloat16 2**-7 (|plain| + P |v|), one bf16 ulp of each output plus
 K3's bf16 rounding of p in p.v, bounded by the same attention over |v|.
 The bf16 cases at hd 64/128/256 run the Hopper kernel (128-row blocks,
@@ -89,6 +90,44 @@ def test_k1_matches_plain(dev, dtype, mode, model, fluid, force):
             else torch.ones_like(f, dtype=torch.bool)
         assert float((got - want).abs()[mask].max()) <= TOL[dtype]
         assert not got[-1].any()
+
+
+RW_CASES = ([(dtype, q, 4, t, None) for dtype in (torch.float32, torch.float64)
+             for q in (9, 19) for t in (1, 7, 133, 2049)]
+            # n = 8; f alone offset by one element from a 16-byte boundary
+            # (aligned unlike out: the register design); f and out both
+            # offset (the ring, with a head and a tail under 16 bytes)
+            + [(dtype, 19, a, t, view) for dtype in (torch.float32, torch.float64)
+               for a, t, view in ((2, 133, None), (4, 133, "f"), (4, 2049, "f"),
+                                  (4, 133, "both"), (4, 2049, "both"))])
+
+
+@pytest.mark.parametrize("dtype,q,a,t,view", RW_CASES)
+def test_k1_rw_only_copies_rows_exactly(dev, dtype, q, a, t, view):
+    n = a ** 3
+    size = (t + 1) * q * n
+    vals = np.random.default_rng(t).uniform(-1.0, 1.0, size)
+    vals[:4] = (-0.0, np.inf, np.nan, 1e-310)        # bits, not values
+    f = torch.as_tensor(vals, dtype=dtype, device=dev)
+    out = torch.full((size + 1,), float("nan"), dtype=dtype, device=dev)
+    if view is not None:
+        f = torch.cat([f[:1], f])[1:]                 # storage offset of one element
+    out = out[1:] if view == "both" else out[:-1]
+    f, out = f.view(t + 1, q, n), out.view(t + 1, q, n)
+    if view is not None:
+        assert f.data_ptr() % 16 == f.element_size()
+    lat = get_lattice("D3Q19" if q == 19 else "D2Q9")
+    types = torch.full((t + 1, n), SOLID, dtype=torch.uint8, device=dev)
+    nbrs = torch.full((t, 27), t, dtype=torch.int32, device=dev)
+    before = k1.stream_collide_tiles.launches
+    got = k1.stream_collide_tiles(f, types, nbrs, lat, C.CollisionConfig(), a,
+                                  mode="rw_only", out=out)
+    torch.cuda.synchronize()
+    assert k1.stream_collide_tiles.launches == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(out[:t].view(bits), f[:t].view(bits))
+    assert bool(torch.isnan(out[t]).all())
 
 
 def test_k1_rejects_what_it_cannot_take(dev):
