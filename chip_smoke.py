@@ -28,11 +28,44 @@ Phases (any failure exits non-zero and prints no result line):
    each kernel of the run must have launched once per step.  At the main
    path's shapes each kernel is held against its plain version and timed,
    beside its bound;
-5. hold the flash-attention kernel K3 against its plain version on
+5. drive the simulation-serving path (``repro_torch.sim``):
+   (a) K1 over a B*T grid (B = 3 replicated tables, as ensembles launch
+   it) on the small walled and periodic geometries, full mode, LBGK and
+   MRT, float64 and float32: against its plain version on the same
+   tables, and bit for bit against three single-replica launches;
+   (b) the service at full size: ``make_case("spheres", scale=4)``,
+   ``backend="fused"``, LBGK incompressible, float64 then float32,
+   ``SimService(slots=4)`` with 6 sessions of 50, 55, ..., 75 steps (the
+   launcher's ``--steps 50 --stagger 5``, so slots are refilled), warmed by
+   ``warm_and_snapshot``, ``svc.run()`` between CUDA events: aggregate
+   MFLUPS, ms per service step, peak device memory, each session's mass
+   drift (finite).  K1's counter is zeroed just before the run and read
+   just after; it must equal the group steps the service took (its
+   ``sim.group.step`` spans).  Then K1 is launched once over the
+   service's B*T tiles on its state after the run: each replica's rows
+   must equal, bit for bit, a single launch over that replica's state
+   with the engine's (T, 27) tables, and match the plain version on the
+   same input.  K1 at B = 4 is timed beside its bytes bound; a profiler
+   pass over 5 ensemble steps splits a step into K1 and the NEBB pass,
+   and a profiled rerun of the service (a new service on the same
+   registry) gives its device idle share and the device time of its
+   finishes and seats.  Every profiler pass warms up inside its session
+   and must trace every K1 launch of its window (a pass that lost a
+   record is repeated, up to 3 passes);
+   (c) parity on the card at spheres scale 1: replicas of a fused float64
+   ensemble against single fused engines after 20 steps (1e-12), the
+   split-stream gather engine bit for bit against the monolithic one after
+   10 float64 steps, ``DenseLBM`` against the sparse engine on the duct
+   case (1e-12);
+   (d) a checkpoint round trip: a fused float64 service (2 slots, 3
+   sessions) checkpointed after 20 steps, restored into a new service and
+   finished; every session's final state bit for bit equal to an
+   uninterrupted run's;
+6. hold the flash-attention kernel K3 against its plain version on
    seeded unit-normal inputs: B in {1, 2} x (H, KVH) in {(4, 4), (4, 2),
    (24, 2)} x hd in {16, 64, 128, 256} x softcap in {None, 30} x causal
    on/off x S = T in {64, 129, 200, 2048} x {float32, bfloat16};
-6. drive the LM serving path at full width: starcoder2-3b (30 layers,
+7. drive the LM serving path at full width: starcoder2-3b (30 layers,
    d_model 3072, 24 query heads over 2 KV heads, hd 128), the port's own
    weights from seed 0 (float32 parameters, bfloat16 compute, float32
    cache), ``ServeEngine`` with 4 slots and max_len 4096, 8 requests of
@@ -46,7 +79,7 @@ Phases (any failure exits non-zero and prints no result line):
    the run's prompts) K3 is held against its plain version and timed
    beside it and beside ``scaled_dot_product_attention`` (the library
    yardstick; the port never calls it);
-7. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
+8. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
    result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
@@ -64,10 +97,12 @@ allowed, as for the ulp).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,7 +112,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import collision as C  # noqa: E402
+from repro_torch.core.dense import DenseLBM  # noqa: E402
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM  # noqa: E402
 from repro_torch.core.lattice import get_lattice  # noqa: E402
 from repro_torch.core.tiling import SOLID, tile_geometry  # noqa: E402
@@ -88,11 +125,13 @@ from repro_torch.kernels import collide as k2  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
+from repro_torch.launch import sim_serve  # noqa: E402
 from repro_torch.models.attention import _project_qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
 from repro_torch.models.transformer import attn_cfg_for  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.sim.service import SimService  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,   # non-tensor-core
@@ -107,6 +146,10 @@ PARITY_STEPS = 10
 # rw_only: rounds x launches of the kernel and copy_ in turns
 ROUNDS, REPS = 5, 20
 SOURCE = "src/repro_torch/csrc"
+# the simulation-serving run: the launcher's --sessions 6 --slots 4
+# --steps 50 --stagger 5 (budgets stay under the spheres case's divergence)
+SIM_SLOTS, SIM_SESSIONS, SIM_STEPS, SIM_STAGGER = 4, 6, 50, 5
+ENS_BATCH = 3                # K1 over a B*T grid on the small geometries
 # the serving run
 ARCH = "starcoder2-3b"
 SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 4096, 8, 2048, 32
@@ -163,6 +206,80 @@ def interleaved_ms(fns: dict, warm: int = 2) -> dict[str, float]:
             events[-1].synchronize()
             samples[name] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+WINDOW = "chip_smoke.window"
+
+
+PROFILE_PASSES = 3
+
+
+K1_KERNEL = "stream_collide_kernel"
+
+
+def _trace_once(fn, warm) -> tuple[list, list, int, str]:
+    """One profiler session: ``warm()``, then ``fn()`` inside a window.
+    Returns the device ops (start us, end us, name) that start inside the
+    window, sorted, the top-level host torch ops inside it, the K1
+    launches ``fn`` made by the wrapper's own count, and K1's records
+    against its launches over the whole session, warm-up included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        first = k1.stream_collide_tiles.launches
+        warm()
+        torch.cuda.synchronize()
+        with record_function(WINDOW):
+            before = k1.stream_collide_tiles.launches
+            fn()
+            launched = k1.stream_collide_tiles.launches - before
+            torch.cuda.synchronize()
+    session = (sum(e.device_type == DeviceType.CUDA and K1_KERNEL in e.name
+                   for e in prof.events()),
+               k1.stream_collide_tiles.launches - first)
+    events = prof.events()
+    (window,) = [e for e in events
+                 if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    t0 = window.time_range.start
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                 if e.device_type == DeviceType.CUDA and e.name != WINDOW
+                 and e.time_range.start >= t0)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::") and e.cpu_parent is not None
+            and e.cpu_parent.name == WINDOW]
+    return dev, host, launched, "{} records of {} launches".format(*session)
+
+
+def traced(fn, warm, what: str) -> tuple[list, list, list[float]]:
+    """``fn()`` under ``torch.profiler``, after ``warm()`` in the same
+    session (a session can lose the records of the first kernels it sees,
+    so the warm-up takes that loss and only what ``fn`` runs is kept).
+    Returns ``_trace_once``'s device and host ops and K1's launch times
+    (us).  A trace must hold every K1 launch ``fn`` made: the profiler
+    now and then drops a kernel record, so a pass that lost one is
+    discarded and repeated, up to ``PROFILE_PASSES`` passes; ``fn`` and
+    ``warm`` must therefore be repeatable.  An empty trace (the profiler
+    saw no device time) is returned as it is."""
+    for attempt in range(1, PROFILE_PASSES + 1):
+        dev, host, launched, session = _trace_once(fn, warm)
+        k1_us = [b - a for a, b, name in dev if K1_KERNEL in name]
+        if not dev or len(k1_us) == launched:
+            return dev, host, k1_us
+        log(f"[profiler] pass {attempt} of {PROFILE_PASSES} over {what} traced "
+            f"{len(k1_us)} of K1's {launched} launches (whole session, warm-up "
+            f"included: {session}): pass discarded")
+    raise AssertionError(f"the profiler traced {len(k1_us)} of K1's {launched} "
+                         f"launches in {what}, in each of {PROFILE_PASSES} passes")
+
+
+def busy_us(dev) -> float:
+    """The union of device op intervals (us)."""
+    busy, end = 0.0, -1.0
+    for start, stop, _ in dev:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
 
 
 def rw_only_design(f: torch.Tensor, out: torch.Tensor, nbytes: int) -> str:
@@ -391,40 +508,23 @@ class Smoke:
 
     def profile_steps(self, eng, sec_per_step: float, steps: int = 10) -> None:
         """Where a fused step's time goes: ``torch.profiler`` over ``steps``
-        steps — device kernels per step, device busy time (union of kernel
-        and memory-op intervals), K1's part of it, and the host's top-level
+        steps (after 2 warm-up steps in the same session) — device ops per
+        step, device busy time (union of kernel and memory-op intervals),
+        K1's part of it (every launch traced), and the host's top-level
         torch ops per step.  The idle share is against the unprofiled step
-        time ``sec_per_step``.  K1's time is per launch over the launches
-        the trace holds, and their count is logged: a trace can miss a
-        kernel's record, and the busy time then misses its time too."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        eng.run(2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            eng.run(steps)
-            torch.cuda.synchronize()
-        events = prof.events()
-        dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in events if e.device_type == DeviceType.CUDA)
-        busy, end = 0.0, -1.0
-        for start, stop, _ in dev:             # union of device intervals (us)
-            busy += max(0.0, stop - max(start, end))
-            end = max(end, stop)
-        k1 = [b - a for a, b, name in dev if "stream_collide_kernel" in name]
-        host_ops = [e for e in events if e.device_type == DeviceType.CPU
-                    and e.name.startswith("aten::") and e.cpu_parent is None]
+        time ``sec_per_step``."""
+        dev, host_ops, k1_us = traced(lambda: eng.run(steps), lambda: eng.run(2),
+                                      f"{steps} {eng.cfg.dtype} steps")
         if not dev:
             log(f"[profile {eng.cfg.dtype}] the profiler saw no device time: "
                 "device busy share not measured")
             return
         step_ms = sec_per_step * 1e3
-        busy_ms = busy / 1e3 / steps
+        busy_ms = busy_us(dev) / 1e3 / steps
         log(f"[profile {eng.cfg.dtype}] per step: {len(dev) / steps:.1f} device "
             f"ops, device busy {busy_ms:.4f} ms of {step_ms:.4f} ms (idle share "
-            f"{1 - busy_ms / step_ms:.3f}), K1 {sum(k1) / 1e3 / max(len(k1), 1):.4f} "
-            f"ms per launch over the {len(k1)} of {steps} launches traced, "
+            f"{1 - busy_ms / step_ms:.3f}), K1 {sum(k1_us) / 1e3 / steps:.4f} "
+            f"ms per launch ({steps} of {steps} launches traced), "
             f"{len(host_ops) / steps:.1f} top-level host torch ops")
 
     def run_fused(self, case, dtype: str) -> None:
@@ -594,6 +694,330 @@ class Smoke:
         log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ------------------------------------------------------------ phase 5
+    def check_k1_bt_grid(self) -> None:
+        """(a) K1 over B*T tiles with the ensembles' replicated tables."""
+        walled = geo.duct_wrap(geo.random_spheres(box=32, porosity=0.6,
+                                                  diameter=8, seed=1))
+        periodic = geo.random_spheres(box=32, porosity=0.6, diameter=8, seed=2)
+        worst, count = {}, 0
+        for dtype in ("float64", "float32"):
+            for model in (C.LBGK, C.LBMRT):
+                for gname, g, per in (("walled", walled, (False,) * 3),
+                                      ("periodic", periodic, (True,) * 3)):
+                    cfg = LBMConfig(collision=C.CollisionConfig(model, tau=0.7),
+                                    dtype=dtype, periodic=per, backend="fused")
+                    eng = SparseTiledLBM(g, cfg, device=self.dev)
+                    b = eng.backend
+                    types, nbrs, _ = b._ensemble_tables(ENS_BATCH)
+                    t, q, n = eng.tiling.num_tiles, eng.lat.q, 64
+                    singles = [self._small_state(g, eng.lat, eng.dtype)[1][0]
+                               for _ in range(ENS_BATCH)]
+                    f = torch.cat([x[:t] for x in singles] + [singles[0][t:]])
+                    args = (types, nbrs, eng.lat, cfg.collision, 4, None, "full")
+                    got = k1.stream_collide_tiles(f, *args)
+                    torch.cuda.synchronize()
+                    want = k1.stream_collide_tiles_ref(f, *args)
+                    fluid = (types != SOLID)[:, None, :].expand_as(f)
+                    err = max_err(got, want, fluid)
+                    bits = torch.int64 if eng.dtype == torch.float64 else torch.int32
+                    for i, x in enumerate(singles):
+                        one = k1.stream_collide_tiles(x, b._types, b._nbrs, *args[2:])
+                        if not torch.equal(got[i * t:(i + 1) * t].view(bits),
+                                           one[:t].view(bits)):
+                            raise AssertionError(
+                                f"K1 over {ENS_BATCH}*T tiles, replica {i}, {gname} "
+                                f"{model} {dtype}: not bit for bit a single launch")
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    count += 1
+                    if not err <= TOL[eng.dtype] or got[-1].any():
+                        raise AssertionError(f"K1 over {ENS_BATCH}*T tiles {gname} "
+                                             f"{model} {dtype}: |err| {err:.3e}")
+        log(f"[K1 B*T grid] B = {ENS_BATCH}: {count} cases within tolerance of the "
+            f"plain version (worst {json.dumps(worst)}) and bit for bit equal to "
+            f"{ENS_BATCH} single-replica launches")
+
+    def sim_service(self, case, dtype: str) -> None:
+        """(b) The service at full size."""
+        args = argparse.Namespace(collision="lbgk", tau=0.6, dtype=dtype,
+                                  backend="fused", split_stream=False)
+        cfg = sim_serve.case_config(case, args)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc = SimService(slots=SIM_SLOTS, device=self.dev)
+        for i in range(SIM_SESSIONS):
+            svc.submit(case.geometry, cfg, steps=SIM_STEPS + i * SIM_STAGGER)
+        start_steps = sim_serve.warm_and_snapshot(svc)   # builds the group
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        (group,) = svc.groups.values()
+        ens, eng = group.ensemble, group.entry.engine
+        rec = obs.SpanRecorder()                # host spans only: no sync
+        k1.stream_collide_tiles.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with obs.use(trace=rec):
+            start.record()
+            finished = svc.run()
+            stop.record()
+            stop.synchronize()
+        launches = k1.stream_collide_tiles.launches
+        wall = start.elapsed_time(stop) / 1e3
+        group_steps = len(rec.find("sim.group.step"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != group_steps or len(finished) != SIM_SESSIONS:
+            raise AssertionError(f"K1 launched {launches} times in {group_steps} "
+                                 f"group steps; {len(finished)} sessions finished")
+        drifts = [s.result["mass_drift"] for s in sorted(finished, key=lambda s: s.sid)]
+        if not all(np.isfinite(drifts)):
+            raise AssertionError(f"non-finite mass drift: {drifts}")
+        out = sim_serve.report(svc, finished, wall, SIM_SLOTS, start_steps)
+        step_ms = wall / group_steps * 1e3
+        log(f"[sim service {dtype}] spheres scale 4, {SIM_SLOTS} slots, "
+            f"{SIM_SESSIONS} sessions of {SIM_STEPS}..."
+            f"{SIM_STEPS + (SIM_SESSIONS - 1) * SIM_STAGGER} steps: set-up and warm "
+            f"step {setup:.1f} s; run {wall:.4f} s (CUDA events) over {group_steps} "
+            f"group steps = {step_ms:.4f} ms per service step, "
+            f"{out['aggregate_mflups']} aggregate MFLUPS; K1 launches {launches}; "
+            f"peak device memory {peak:.2f} GiB; mass drift per session "
+            f"{json.dumps([float(f'{d:.3e}') for d in drifts])}")
+
+        # K1 over the service's B*T tiles, on its state after the run: each
+        # replica's rows bit for bit a single launch over that replica's
+        # state with the engine's (T, 27) tables, held against the plain
+        # version on the same input
+        b = eng.backend
+        types, nbrs, bc = b._ensemble_tables(SIM_SLOTS)
+        kargs = (ens.f, types, nbrs, eng.lat, cfg.collision, 4, None, "full")
+        got = k1.stream_collide_tiles(*kargs, out=ens._spare)
+        t = eng.tiling.num_tiles
+        bits = torch.int64 if eng.dtype == torch.float64 else torch.int32
+        fluid = (b._types[:t] != SOLID)[:, None, :].expand(t, *ens.f.shape[1:])
+        single = (b._types, b._nbrs, *kargs[3:])
+        err = 0.0
+        for i in range(SIM_SLOTS):
+            x = torch.cat([ens.f[i * t:(i + 1) * t], ens.f[-1:]])
+            one = k1.stream_collide_tiles(x, *single)
+            if not torch.equal(got[i * t:(i + 1) * t].view(bits), one[:t].view(bits)):
+                raise AssertionError(
+                    f"K1 over {SIM_SLOTS}*T tiles {dtype}, replica {i}: not bit for "
+                    f"bit a single launch (max |err| "
+                    f"{max_err(got[i * t:(i + 1) * t], one[:t]):.3e})")
+            del one
+            want = k1.stream_collide_tiles_ref(x, *single)
+            err = max(err, max_err(got[i * t:(i + 1) * t], want[:t], fluid))
+            del x, want
+        if not err <= TOL[eng.dtype] or got[-1].any():
+            raise AssertionError(f"K1 over {SIM_SLOTS}*T tiles {dtype} vs its plain "
+                                 f"version: |err| {err:.3e}")
+        log(f"[K1 B={SIM_SLOTS} {dtype} check] on the service's state after the "
+            f"run: every replica's rows bit for bit a single launch over that "
+            f"replica; max |err| against the plain version {err:.3e}")
+
+        # K1 at B = 4 timed on the service's buffers, and profiler passes
+        ms = time_ms(lambda: k1.stream_collide_tiles(*kargs, out=ens._spare), 50,
+                     label=f"K1 B={SIM_SLOTS} {dtype}")
+        bt = SIM_SLOTS * t
+        q, n, isz = eng.lat.q, eng.tiling.nodes_per_tile, eng.dtype.itemsize
+        nbytes = 2 * bt * q * n * isz + (bt + 1) * n + bt * 27 * 4 + q * n * 5
+        flops = bt * n * collision_flops_per_node(q, eng.lat.e, False)
+        bms, by = bound(nbytes, flops, eng.dtype)
+        ens_ms = time_ms(lambda: ens.run(1), 20, label=f"ensemble step {dtype}")
+        prof, ens_busy_ms = self.profile_ensemble(ens, step_ms)
+        name = "stream_collide_tiles" + ("" if dtype == "float64" else f"[{dtype}]")
+        self.kernels[name].update({
+            "bt_batch": SIM_SLOTS, "bt_ms": ms, "bt_bound_ms": bms,
+            "bt_bound_by": by, "bt_launches": launches, "bt_max_abs_err": err})
+        log(f"[K1 B={SIM_SLOTS} {dtype}] {bt} tiles: {ms:.4f} ms/launch = "
+            f"{ms / bt * 1e6:.4f} ns per tile (bound {bms:.4f} ms by {by}, "
+            f"{bms / ms:.3f} of it); single-engine K1 "
+            f"{self.kernels[name]['ms']:.4f} ms for {t} tiles = "
+            f"{self.kernels[name]['ms'] / t * 1e6:.4f} ns per "
+            f"tile; per tile B={SIM_SLOTS} / single "
+            f"{ms / bt / (self.kernels[name]['ms'] / t):.4f}; "
+            f"NEBB pass over {len(bc['tiles'])} tiles {prof}; the ensemble step "
+            f"alone {ens_ms:.4f} ms (CUDA events, median of 20), the service's "
+            f"own work {step_ms - ens_ms:.4f} ms per service step")
+        registry = svc.registry
+        del svc, group, ens, got, kargs, types, nbrs, bc, fluid
+        torch.cuda.empty_cache()
+        log(f"[sim service {dtype} profile] " + self.profile_service(
+            registry, case, cfg, step_ms, ens_busy_ms))
+
+    def profile_ensemble(self, ens, step_ms: float,
+                         steps: int = 5) -> tuple[str, float]:
+        """Device time of ``steps`` ensemble steps under ``torch.profiler``
+        (after 2 warm-up steps in the same session): K1 per launch, the
+        rest (the NEBB pass) per step, and the device busy time per step,
+        which it also returns (ms)."""
+        dev, _, k1_us = traced(lambda: ens.run(steps), lambda: ens.run(2),
+                               f"{steps} ensemble steps")
+        if not dev:
+            return "not measured (the profiler saw no device time)", float("nan")
+        rest = sum(b - a for a, b, nm in dev if K1_KERNEL not in nm)
+        busy_ms = busy_us(dev) / 1e3 / steps
+        return (f"{rest / 1e3 / steps:.4f} ms device time per step in "
+                f"{(len(dev) - len(k1_us)) / steps:.0f} ops; profiled: K1 "
+                f"{sum(k1_us) / 1e3 / steps:.4f} ms per launch ({steps} of "
+                f"{steps} launches traced), device busy {busy_ms:.4f} ms per "
+                f"ensemble step, {1 - busy_ms / step_ms:.3f} of the "
+                f"{step_ms:.4f} ms service step idle"), busy_ms
+
+    def profile_service(self, registry, case, cfg, step_ms: float,
+                        ens_busy_ms: float) -> str:
+        """The service's run again, on a new service over the same registry
+        and submissions, under ``torch.profiler`` (its warm-up step in the
+        same session): device busy per group step against the unprofiled
+        service step, and the device time of the finishes and seats (the
+        busy time beyond the group steps' ensemble steps).  Each profiler
+        pass builds its service anew in its warm-up, the last one freed
+        first."""
+        state: dict = {}
+
+        def warm():
+            state.clear()
+            torch.cuda.empty_cache()
+            svc = SimService(slots=SIM_SLOTS, registry=registry)
+            for i in range(SIM_SESSIONS):
+                svc.submit(case.geometry, cfg, steps=SIM_STEPS + i * SIM_STAGGER)
+            sim_serve.warm_and_snapshot(svc)
+            state.update(svc=svc, rec=obs.SpanRecorder())
+
+        def run():
+            with obs.use(trace=state["rec"]):
+                state["svc"].run()
+
+        dev, _, k1_us = traced(run, warm, "the service's run")
+        steps = len(state["rec"].find("sim.group.step"))
+        state.clear()
+        if not dev:
+            return "not measured (the profiler saw no device time)"
+        if len(k1_us) != steps:
+            raise AssertionError(f"K1 launched {len(k1_us)} times in the profiled "
+                                 f"service's {steps} group steps")
+        busy_ms = busy_us(dev) / 1e3
+        seat_finish_ms = busy_ms - steps * ens_busy_ms
+        return (f"profiled service run: {len(dev)} device ops, device busy "
+                f"{busy_ms / steps:.4f} ms per group step ({steps} of {steps} "
+                f"K1 launches traced), {1 - busy_ms / steps / step_ms:.3f} of "
+                f"the {step_ms:.4f} ms service step idle; finishes and seats "
+                f"{seat_finish_ms:.2f} ms of device time in the run = "
+                f"{seat_finish_ms / steps:.4f} ms per group step")
+
+    def sim_parity(self) -> None:
+        """(c) Ensembles, split streaming and the dense oracle on the card."""
+        case = launcher.make_case("spheres", 1)
+        kw = dict(collision=C.CollisionConfig(tau=0.6), dtype="float64",
+                  boundaries=case.boundaries)
+        cfg = LBMConfig(backend="fused", **kw)
+        eng = SparseTiledLBM(case.geometry, cfg, device=self.dev)
+        ens = eng.ensemble(ENS_BATCH)
+        feq = eng._initial_feq()
+        worst = 0.0
+        fluid = ~eng._solid[None]
+        singles = []
+        for b in range(ENS_BATCH):
+            single = SparseTiledLBM(case.geometry, cfg, device=self.dev)
+            single.f = single.backend.initial_state(feq * (1.0 + 0.01 * (b + 1)))
+            ens.set_replica(b, feq * (1.0 + 0.01 * (b + 1)))
+            singles.append(single)
+        ens.run(20)
+        for b, single in enumerate(singles):
+            single.run(20)
+            want = single.backend.canonical(single.f)
+            worst = max(worst, max_err(ens.replica_canonical(b), want,
+                                       fluid.expand_as(want)))
+        if not worst <= TOL[torch.float64]:
+            raise AssertionError(f"fused ensemble vs single engines: {worst:.3e}")
+        g_kw = dict(kw, layout_scheme="paper")
+        mono = SparseTiledLBM(case.geometry, LBMConfig(**g_kw), device=self.dev)
+        split = SparseTiledLBM(case.geometry, LBMConfig(split_stream=True, **g_kw),
+                               device=self.dev)
+        mono.run(PARITY_STEPS)
+        split.run(PARITY_STEPS)
+        if not torch.equal(mono.f, split.f):
+            raise AssertionError("split-stream gather engine differs from the "
+                                 "monolithic one: max |err| "
+                                 f"{max_err(mono.f, split.f):.3e}")
+        duct = launcher.make_case("duct", 1)
+        d_cfg = LBMConfig(collision=C.CollisionConfig(tau=0.6), dtype="float64",
+                          boundaries=duct.boundaries, layout_scheme="paper")
+        sparse = SparseTiledLBM(duct.geometry, d_cfg, device=self.dev)
+        dense = DenseLBM(np.pad(duct.geometry, [
+            (0, sparse.tiling.shape[i] - duct.geometry.shape[i]) for i in range(3)]),
+            d_cfg, device=self.dev)
+        sparse.run(PARITY_STEPS)
+        dense.step(PARITY_STEPS)
+        rho_s, u_s = sparse.fields_dense()
+        rho_d, u_d = (x.cpu().numpy() for x in dense.macroscopics())
+        fl = dense.node_type != SOLID
+        d_err = max(np.abs(np.where(fl, rho_s - rho_d, 0)).max(),
+                    np.abs(np.where(fl[None], u_s - u_d, 0)).max())
+        if not d_err <= TOL[torch.float64]:
+            raise AssertionError(f"DenseLBM vs sparse engine: {d_err:.3e}")
+        log(f"[sim parity float64] spheres scale 1: {ENS_BATCH} fused replicas vs "
+            f"single engines after 20 steps max |err| {worst:.3e}; split-stream "
+            f"gather bit for bit the monolithic one after {PARITY_STEPS} steps "
+            f"(index bytes per step {split.index_bytes_per_step()} vs "
+            f"{mono.index_bytes_per_step()}); duct DenseLBM vs sparse after "
+            f"{PARITY_STEPS} steps max |err| {d_err:.3e}")
+
+    def sim_checkpoint(self) -> None:
+        """(d) Checkpoint after 20 steps, restore into a new service, finish:
+        every session's final state bit for bit an uninterrupted run's."""
+
+        class Recording(SimService):
+            """Keeps each session's state as it finishes."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.final = {}
+
+            def _finish(self, group, slot):
+                sess = group.active[slot]
+                self.final[sess.sid] = group.ensemble.replica_canonical(slot).clone()
+                super()._finish(group, slot)
+
+        case = launcher.make_case("spheres", 1)
+        cfg = LBMConfig(collision=C.CollisionConfig(tau=0.6), dtype="float64",
+                        boundaries=case.boundaries, backend="fused")
+
+        def submit(svc):
+            for steps in (30, 35, 40):
+                svc.submit(case.geometry, cfg, steps=steps)
+
+        whole = Recording(slots=2, device=self.dev)
+        submit(whole)
+        whole.run()
+        with tempfile.TemporaryDirectory() as root:
+            first = Recording(slots=2, checkpoint_root=root, device=self.dev)
+            submit(first)
+            first.step(20)
+            path = first.checkpoint()
+            del first
+            again = Recording.restore(root, slots=2, device=self.dev)
+            finished = again.run()
+        if sorted(again.final) != sorted(whole.final) or len(finished) != 3:
+            raise AssertionError(f"restored run finished {sorted(again.final)}")
+        for sid, f in whole.final.items():
+            if not torch.equal(again.final[sid], f):
+                raise AssertionError(f"session {sid} differs after the checkpoint "
+                                     f"round trip: {max_err(again.final[sid], f):.3e}")
+        log(f"[sim checkpoint float64] spheres scale 1, 2 slots, 3 sessions: "
+            f"checkpoint at service step 20 ({Path(path).name}), restored and "
+            f"finished; every session's final state bit for bit the "
+            f"uninterrupted run's")
+
+    def sim_main(self) -> None:
+        self.check_k1_bt_grid()
+        case = launcher.make_case("spheres", 4)
+        for dtype in ("float64", "float32"):
+            self.sim_service(case, dtype)
+            torch.cuda.empty_cache()
+        self.sim_parity()
+        self.sim_checkpoint()
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 6
     def _qkv(self, gen, dtype, b, s, h, kvh, hd):
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=self.dev).to(dtype)
@@ -628,7 +1052,7 @@ class Smoke:
         log(f"[K3 vs plain] {count} cases within tolerance; worst |err| / "
             f"bound over elements, by dtype: {json.dumps(worst)}")
 
-    # ------------------------------------------------------------ phase 6
+    # ------------------------------------------------------------ phase 7
     def serve_main(self) -> None:
         cfg = get_config(ARCH)
         t0 = time.perf_counter()
@@ -798,6 +1222,9 @@ def main() -> int:
     smoke.check_k2_small()
     smoke.main_path()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    smoke.sim_main()
+    log(f"[sim] phase in {time.perf_counter() - t1:.1f} s")
     smoke.check_k3_matrix()
     smoke.serve_main()
     log(f"[done] {time.perf_counter() - t0:.1f} s")

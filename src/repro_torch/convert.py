@@ -6,13 +6,20 @@ imports it:
 
 * :func:`config_from_reference` takes the dict of the reference's
   ``repro.sim.registry.config_to_dict`` (``dataclasses.asdict`` of its
-  ``LBMConfig``) and gives the port's :class:`LBMConfig`.
+  ``LBMConfig``) and gives the port's :class:`LBMConfig`; the port's
+  ``repro_torch.sim.registry.config_to_dict`` writes that same dict, and
+  session manifests carry it.
 * :func:`state_from_reference` takes ``np.asarray(ref_engine.f)`` — the
   storage layout (Q, T, n) of a gather engine in its ``layout_scheme``
   order, or the packed (T+1, Q, n) state of a fused engine — and gives the
   port engine's state.  The reference engine must have run the same
   geometry and configuration (layout and orders included).
 * :func:`state_to_reference` does the reverse.
+* :func:`ensemble_from_reference` seats every replica of a port ensemble
+  from ``np.asarray(ref_ensemble.f)`` — (B, Q, T, n) storage layout on
+  gather, the replicated packed (B*T + 1, Q, n) state on fused — and
+  ``ensemble.f.cpu().numpy()`` is the port ensemble's state in that
+  layout.
 * :func:`lm_params_from_reference` takes the reference ``CausalLM``'s
   parameter pytree as nested dicts of numpy arrays (``stack.layers.*``
   stacked over the L layers) and returns a port :class:`CausalLM` holding
@@ -86,6 +93,27 @@ def state_to_reference(engine: SparseTiledLBM) -> np.ndarray:
     same configuration: packed (T+1, Q, n) for fused, storage (Q, T, n) for
     gather."""
     return engine.f.detach().cpu().numpy()
+
+
+def ensemble_from_reference(f_np: np.ndarray, ensemble) -> None:
+    """Seat every replica of the port's ``ensemble`` from a reference
+    ensemble's ``f`` over the same geometry and configuration: (B, Q, T, n)
+    in the storage layout of a gather ensemble, or (B*T + 1, Q, n) packed
+    of a fused one (either converts into either backend)."""
+    eng = ensemble.engine
+    f = torch.tensor(np.asarray(f_np), dtype=eng.dtype, device=eng.device)
+    (t1, q, n), (_, t, _) = _packed_shape(eng)
+    b = ensemble.batch
+    if tuple(f.shape) == (b * t + 1, q, n):
+        canon = f[:-1].view(b, t, q, n).transpose(1, 2)
+    elif tuple(f.shape) == (b, q, t, n):
+        canon = (eng.backend.canonical(f) if eng.cfg.backend == "gather"
+                 else f)
+    else:
+        raise ValueError(f"ensemble state shape {tuple(f.shape)} is neither "
+                         f"packed {(b * t + 1, q, n)} nor storage {(b, q, t, n)}")
+    for i in range(b):
+        ensemble.set_replica(i, canon[i])
 
 
 # --------------------------------------------------------------------------

@@ -14,6 +14,20 @@ one LBM iteration:
 
 Both produce the same physics (float64 parity to 1e-12 is pinned by the
 tests against the JAX package's gather engine).
+
+Ensembles (``repro_torch.sim.ensemble``): both backends advance B
+independent flow states over the SAME geometry, loading the index tables
+once per step for all B:
+
+* gather — f carries a leading batch axis (B, Q, T, n); one gather (or one
+  split-phase pass) streams every replica, then each replica is relaxed by
+  the single engine's own functions on its contiguous (Q, T, n) slice, so
+  every replica stays bitwise equal to an independent engine.
+* fused — the packed tile axis is replicated, (B*T + 1, Q, n): per-replica
+  offsets folded into the neighbour table, one shared zero scratch row at
+  B*T, so ONE launch of K1 over B*T tiles advances every replica.  The
+  ensemble owns its own pair of such buffers; the engine's pair is never
+  touched.
 """
 from __future__ import annotations
 
@@ -24,6 +38,7 @@ from ..kernels.collide import collide_tiles
 from ..kernels.stream_collide import (build_neighbor_table,
                                       packed_gather_indices,
                                       stream_collide_tiles)
+from ..obs.trace import phase_scope
 from . import collision as col
 from .boundary import apply_open_boundary
 from .streaming import StreamTables, build_stream_tables
@@ -63,6 +78,43 @@ def boundary_pass_tables(tiling: Tiling, lat, boundaries, periodic):
     return bt, packed, type_masks, types[bt] == SOLID
 
 
+def apply_split_stream(f_store, solid, *, intra, is_cross, nbr, case,
+                       bounce_dst, irregular_dst, irregular_src, opp, perms):
+    """Split-phase pull streaming: storage-layout ``f_store`` (..., Q, T, n)
+    -> post-streaming ``f_in`` (..., Q, T, n) in node-axis (slot) order.
+
+    Phase 1 (interior): ONE (Q, n) index table broadcast over the tile
+    axis.  Phase 2 (frontier): cross-tile sources are computed from the
+    (T, 27) neighbour table and the same (Q, n) tables; bounce links are
+    written from a compact flat destination list (their source recomputed
+    from ``opp``/``perms``), and the rare statically unpredictable links
+    from explicit (dst, src) pairs.  Solid destinations are zeroed — their
+    post-collision value is masked to zero anyway, which keeps 'full'-mode
+    steps bitwise equal to the monolithic gather.  Leading axes (an
+    ensemble's batch) share every table.  Index tensors are int64.
+    """
+    *lead, q, t, n = f_store.shape
+    m = t * n
+    flat = f_store.reshape(*lead, q * m)
+    with phase_scope("lbm.phase.stream_interior"):
+        f_in = torch.gather(f_store, -1, intra[:, None, :].expand(f_store.shape))
+    with phase_scope("lbm.phase.stream_frontier"):
+        src_tile = nbr[:, case].movedim(0, 1)                       # (Q, T, n)
+        idx = (torch.arange(q, device=nbr.device)[:, None, None] * m
+               + src_tile * n + intra[:, None, :])
+        f_cross = flat.index_select(-1, idx.reshape(-1)).reshape(f_store.shape)
+        f_in = torch.where(is_cross[:, None, :], f_cross, f_in).reshape(*lead, q * m)
+        if bounce_dst.numel():
+            dq, rem = bounce_dst // m, bounce_dst % m
+            dt, ds = rem // n, rem % n
+            src = opp[dq] * m + dt * n + perms.reshape(-1)[opp[dq] * n + ds]
+            f_in[..., bounce_dst] = flat.index_select(-1, src)
+        if irregular_dst.numel():
+            f_in[..., irregular_dst] = flat.index_select(-1, irregular_src)
+        f_in = f_in.reshape(f_store.shape)
+    return f_in.masked_fill(solid[None], 0.0)
+
+
 def nebb_boundary_pass(f_pre, out, lat, collision_cfg, force, specs,
                        tiles, gather, type_masks, solid):
     """The fused backend's post-kernel masked NEBB pass, in place on ``out``.
@@ -74,17 +126,24 @@ def nebb_boundary_pass(f_pre, out, lat, collision_cfg, force, specs,
     the gather backend's in-line application does.
     """
     q, n = out.shape[-2], out.shape[-1]
-    f_in = torch.take(f_pre, gather).reshape(q, -1, n)     # (Q, B, n)
-    for mask, spec in zip(type_masks, specs):
-        f_in = apply_open_boundary(f_in, mask, spec, lat)
-    f_out, _, _ = col.collide(f_in, lat, collision_cfg, force)
-    f_out = f_out.masked_fill(solid[None], 0.0)
-    out[tiles] = f_out.movedim(0, 1)
+    with phase_scope("lbm.phase.boundary"):
+        f_in = torch.take(f_pre, gather).reshape(q, -1, n)     # (Q, B, n)
+        for mask, spec in zip(type_masks, specs):
+            f_in = apply_open_boundary(f_in, mask, spec, lat)
+        f_out, _, _ = col.collide(f_in, lat, collision_cfg, force)
+        f_out = f_out.masked_fill(solid[None], 0.0)
+        out[tiles] = f_out.movedim(0, 1)
     return out
 
 
 class GatherBackend:
-    """One-gather-per-direction streaming + torch (or K2) collision."""
+    """One-gather-per-direction streaming + torch (or K2) collision.
+
+    With ``cfg.split_stream`` the monolithic (Q, T, n) gather is replaced
+    by the split-phase path (:func:`apply_split_stream`).  Output is
+    bitwise equal in 'full' mode; in 'propagation_only' mode solid slots
+    read zero instead of the monolithic path's bounce value.
+    """
 
     name = "gather"
 
@@ -95,8 +154,24 @@ class GatherBackend:
         self._solid = torch.as_tensor(types == SOLID, device=device)
         self._bc_masks = [(torch.as_tensor(types == tv, device=device), spec)
                           for tv, spec in cfg.boundaries]
-        self._gather = torch.as_tensor(tables.gather_idx.reshape(lat.q, -1),
-                                       dtype=torch.int64, device=device)
+        self._split = self._gather = None
+        if cfg.split_stream:
+            sp = tables.split
+
+            def idx(a):
+                return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+            self._split = {
+                "intra": idx(sp.intra_idx), "case": idx(sp.case),
+                "is_cross": torch.as_tensor(sp.is_cross, device=device),
+                "nbr": idx(sp.nbr), "bounce_dst": idx(sp.bounce_dst),
+                "irregular_dst": idx(sp.irregular_dst),
+                "irregular_src": idx(sp.irregular_src), "opp": idx(sp.opp),
+                "perms": idx(tables.perms),
+            }
+        else:
+            self._gather = torch.as_tensor(tables.gather_idx.reshape(lat.q, -1),
+                                           dtype=torch.int64, device=device)
         t, n = tiling.num_tiles, tiling.nodes_per_tile
         self._perms = torch.as_tensor(tables.perms, dtype=torch.int64,
                                       device=device)[:, None, :].expand(lat.q, t, n)
@@ -105,15 +180,16 @@ class GatherBackend:
 
     # ------------------------------------------------- layout shuffles
     def to_storage(self, f_canon: torch.Tensor) -> torch.Tensor:
-        """canonical node order -> per-direction storage layout."""
+        """canonical node order -> per-direction storage layout, over any
+        leading axes."""
         if self.cfg.layout_scheme == "xyz":
             return f_canon
-        return torch.gather(f_canon, 2, self._inv_perms)
+        return torch.gather(f_canon, -1, self._inv_perms.expand(f_canon.shape))
 
     def canonical(self, f_store: torch.Tensor) -> torch.Tensor:
         if self.cfg.layout_scheme == "xyz":
             return f_store
-        return torch.gather(f_store, 2, self._perms)
+        return torch.gather(f_store, -1, self._perms.expand(f_store.shape))
 
     def initial_state(self, feq_canon: torch.Tensor) -> torch.Tensor:
         return self.to_storage(feq_canon).contiguous()
@@ -127,18 +203,62 @@ class GatherBackend:
                                   self.cfg.force)
         return f_out
 
+    def _stream(self, f_store: torch.Tensor) -> torch.Tensor:
+        """Streaming + bounce-back of (..., Q, T, n) storage-layout states,
+        every leading axis through the same tables."""
+        if self._split is not None:
+            return apply_split_stream(f_store, self._solid, **self._split)
+        with phase_scope("lbm.phase.stream"):
+            flat = f_store.reshape(*f_store.shape[:-3], -1)
+            return flat.index_select(-1, self._gather.reshape(-1)) \
+                .reshape(f_store.shape)
+
+    def _relax(self, f_in: torch.Tensor) -> torch.Tensor:
+        """Open boundaries, collision and solid masking of one post-streaming
+        (Q, T, n) state, back in the storage layout."""
+        with phase_scope("lbm.phase.boundary"):
+            for mask, spec in self._bc_masks:
+                f_in = apply_open_boundary(f_in, mask, spec, self.lat)
+        with phase_scope("lbm.phase.collide"):
+            f_out = self._collide(f_in)
+        with phase_scope("lbm.phase.pack"):
+            return self.to_storage(f_out.masked_fill(self._solid[None], 0.0))
+
     def step(self, f_store: torch.Tensor) -> torch.Tensor:
         if self.cfg.kernel_mode == "rw_only":
             # paper §4.1: read + write the node's own data, no propagation
             return f_store.clone()
-        # streaming + bounce-back: one gather per direction
-        f_in = torch.take(f_store, self._gather).reshape(f_store.shape)
+        f_in = self._stream(f_store)
         if self.cfg.kernel_mode == "propagation_only":
             return self.to_storage(f_in)
-        for mask, spec in self._bc_masks:
-            f_in = apply_open_boundary(f_in, mask, spec, self.lat)
-        f_out = self._collide(f_in).masked_fill(self._solid[None], 0.0)
-        return self.to_storage(f_out)
+        return self._relax(f_in)
+
+    # ------------------------------------------------- ensemble (B states)
+    def ensemble_state(self, f_canon: torch.Tensor, batch: int) -> torch.Tensor:
+        """B copies of one canonical (Q, T, n) state: (B, Q, T, n) storage."""
+        return self.to_storage(f_canon)[None].repeat(batch, 1, 1, 1)
+
+    def ensemble_step(self, fb: torch.Tensor) -> torch.Tensor:
+        """One step of B states: one streaming pass for the whole batch,
+        then each replica relaxed on its own contiguous slice by the single
+        step's functions (sums over q in the single engine's order)."""
+        if self.cfg.kernel_mode == "rw_only":
+            return fb.clone()
+        f_in = self._stream(fb)
+        if self.cfg.kernel_mode == "propagation_only":
+            return self.to_storage(f_in)
+        return torch.stack([self._relax(f) for f in f_in.unbind(0)])
+
+    def ensemble_canonical(self, fb: torch.Tensor) -> torch.Tensor:
+        return self.canonical(fb)
+
+    def replica_canonical(self, fb: torch.Tensor, b: int) -> torch.Tensor:
+        return self.canonical(fb[b])
+
+    def ensemble_set(self, fb: torch.Tensor, b: int,
+                     f_canon: torch.Tensor) -> None:
+        """Seat replica ``b`` from a canonical (Q, T, n) state, in place."""
+        fb[b] = self.to_storage(f_canon.to(fb.dtype))
 
 
 class FusedBackend:
@@ -152,6 +272,7 @@ class FusedBackend:
                 "backend='fused' keeps f in the kernel's packed tile layout; "
                 f"layout_scheme must be 'xyz' (got {cfg.layout_scheme!r})")
         self.cfg, self.lat, self.tiling = cfg, lat, tiling
+        self.device = device
         t, n = tiling.num_tiles, tiling.nodes_per_tile
         types = np.full((t + 1, n), SOLID, np.uint8)
         types[:t] = tiling.node_types
@@ -160,19 +281,25 @@ class FusedBackend:
                                      device=device)
         self._solid = torch.as_tensor(tiling.node_types == SOLID, device=device)
         self._bc = None
-        bc_np = (boundary_pass_tables(tiling, lat, cfg.boundaries, cfg.periodic)
-                 if cfg.boundaries and cfg.kernel_mode == "full" else None)
-        if bc_np is not None:
-            bt, packed, type_masks, solid_b = bc_np
-            self._bc = {
-                "tiles": torch.as_tensor(bt, dtype=torch.int64, device=device),
-                "gather": torch.as_tensor(packed, dtype=torch.int64,
-                                          device=device).reshape(-1),
-                "type_masks": torch.as_tensor(type_masks, device=device),
-                "solid": torch.as_tensor(solid_b, device=device),
-                "specs": tuple(spec for _, spec in cfg.boundaries),
-            }
+        self._bc_np = (boundary_pass_tables(tiling, lat, cfg.boundaries,
+                                            cfg.periodic)
+                       if cfg.boundaries and cfg.kernel_mode == "full" else None)
+        if self._bc_np is not None:
+            self._bc = self._bc_tables(*self._bc_np)
         self._bufs: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._ens_tables: dict[int, tuple] = {}
+
+    def _bc_tables(self, tiles, gather, type_masks, solid) -> dict:
+        """The NEBB pass's tables on the device; indices in int64."""
+        dev = self.device
+        return {
+            "tiles": torch.as_tensor(tiles, dtype=torch.int64, device=dev),
+            "gather": torch.as_tensor(gather, dtype=torch.int64,
+                                      device=dev).reshape(-1),
+            "type_masks": torch.as_tensor(type_masks, device=dev),
+            "solid": torch.as_tensor(solid, device=dev),
+            "specs": tuple(spec for _, spec in self.cfg.boundaries),
+        }
 
     # ------------------------------------------------------------ state
     def initial_state(self, feq_canon: torch.Tensor) -> torch.Tensor:
@@ -196,16 +323,87 @@ class FusedBackend:
         return b if f.data_ptr() == a.data_ptr() else a
 
     # ------------------------------------------------------------ step
-    def step(self, f: torch.Tensor) -> torch.Tensor:
-        out = self.other(f)
+    def _advance(self, f, out, types, nbrs, bc) -> torch.Tensor:
+        """K1 from ``f`` into ``out``, then the NEBB pass over ``bc``'s
+        tiles."""
         cfg = self.cfg
-        stream_collide_tiles(f, self._types, self._nbrs, self.lat,
-                             cfg.collision, a=cfg.a, force=cfg.force,
-                             mode=cfg.kernel_mode, node_order=cfg.node_order,
-                             out=out)
-        if self._bc is not None:
-            tab = self._bc
+        with phase_scope("lbm.phase.stream_collide"):
+            stream_collide_tiles(f, types, nbrs, self.lat, cfg.collision,
+                                 a=cfg.a, force=cfg.force,
+                                 mode=cfg.kernel_mode,
+                                 node_order=cfg.node_order, out=out)
+        if bc is not None:
             nebb_boundary_pass(f, out, self.lat, cfg.collision, cfg.force,
-                               tab["specs"], tab["tiles"], tab["gather"],
-                               tab["type_masks"], tab["solid"])
+                               bc["specs"], bc["tiles"], bc["gather"],
+                               bc["type_masks"], bc["solid"])
         return out
+
+    def step(self, f: torch.Tensor) -> torch.Tensor:
+        return self._advance(f, self.other(f), self._types, self._nbrs,
+                             self._bc)
+
+    # ------------------------------------------------- ensemble (B states)
+    def _ensemble_tables(self, batch: int):
+        """Replicated kernel tables for a B-replicated packed state.
+
+        Replica b's tiles occupy rows [b*T, (b+1)*T); the single scratch
+        row moves to B*T.  The neighbour table gets the per-replica row
+        offset folded in (scratch references remapped to B*T), and the NEBB
+        tables the packed-flat offset ``b * T * Q * n``, built in int64 (it
+        passes 2**31 at B = 8 on the largest case), so
+        :func:`nebb_boundary_pass` runs unchanged over every replica's
+        boundary tiles.  Built once per batch size and shared by every
+        ensemble of this backend.
+        """
+        if batch in self._ens_tables:
+            return self._ens_tables[batch]
+        t, n = self.tiling.num_tiles, self.tiling.nodes_per_tile
+        q = self.lat.q
+        nbrs = torch.cat([torch.where(self._nbrs == t, batch * t, self._nbrs + b * t)
+                          for b in range(batch)])
+        types = self._types.new_full((batch * t + 1, n), SOLID)
+        types[:batch * t] = self._types[:t].repeat(batch, 1)
+        bc = None
+        if self._bc_np is not None:
+            bt, packed, type_masks, solid_b = self._bc_np
+            bc = self._bc_tables(
+                np.concatenate([bt.astype(np.int64) + b * t
+                                for b in range(batch)]),
+                np.concatenate([packed.astype(np.int64) + b * t * q * n
+                                for b in range(batch)], axis=1),
+                np.concatenate([type_masks] * batch, axis=1),
+                np.concatenate([solid_b] * batch))
+        tables = (types, nbrs, bc)
+        self._ens_tables[batch] = tables
+        return tables
+
+    def ensemble_state(self, f_canon: torch.Tensor, batch: int) -> torch.Tensor:
+        """B copies of one canonical (Q, T, n) state in a new zeroed
+        (B*T + 1, Q, n) buffer (scratch row B*T zero)."""
+        q, t, n = f_canon.shape
+        f = f_canon.new_zeros((batch * t + 1, q, n))
+        f[:-1].view(batch, t, q, n)[:] = f_canon.movedim(0, 1)
+        return f
+
+    def ensemble_step(self, f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """One launch of K1 over all B*T tiles from ``f`` into ``out`` (a
+        buffer of the same shape whose scratch row is zero), then the NEBB
+        pass over every replica's boundary tiles; B comes from the shape."""
+        types, nbrs, bc = self._ensemble_tables(
+            (f.shape[0] - 1) // self.tiling.num_tiles)
+        return self._advance(f, out, types, nbrs, bc)
+
+    def ensemble_canonical(self, f: torch.Tensor) -> torch.Tensor:
+        """(B*T + 1, Q, n) -> (B, Q, T, n) view, for diagnostics."""
+        t = self.tiling.num_tiles
+        return f[:-1].view(-1, t, *f.shape[1:]).transpose(1, 2)
+
+    def replica_canonical(self, f: torch.Tensor, b: int) -> torch.Tensor:
+        t = self.tiling.num_tiles
+        return f[b * t:(b + 1) * t].movedim(0, 1)
+
+    def ensemble_set(self, f: torch.Tensor, b: int,
+                     f_canon: torch.Tensor) -> None:
+        """Seat replica ``b`` from a canonical (Q, T, n) state, in place."""
+        t = self.tiling.num_tiles
+        f[b * t:(b + 1) * t] = f_canon.movedim(0, 1)

@@ -6,7 +6,10 @@ step is pluggable (``LBMConfig.backend``, see ``repro_torch.core.backends``):
 
 * ``backend="gather"`` — one gather per direction over the per-direction
   storage layout; ``use_kernel=True`` swaps the collision math for the
-  collision kernel K2.
+  collision kernel K2.  ``split_stream=True`` replaces the monolithic
+  (Q, T, n) index table with split-phase streaming: a static (Q, n)
+  interior permutation broadcast over tiles plus compact frontier tables
+  (bitwise-equal streaming, see ``repro_torch.core.streaming``).
 * ``backend="fused"`` — the fused stream+collide kernel K1 over state held
   persistently in the packed (T+1, Q, n) layout.
 
@@ -22,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels.stream_collide import MODES
 from . import collision as col
@@ -43,7 +47,9 @@ class LBMConfig:
     a: int = 4                                # nodes per tile edge
     tile_order: str = "zmajor"                # tiling.TILE_ORDERS
     node_order: str = "canonical"             # tiling.NODE_ORDERS
-    split_stream: bool = False                # not ported yet
+    # split-phase streaming (gather backend only): static (Q, n) interior
+    # permutation + compact frontier tables (streaming.SplitStreamTables)
+    split_stream: bool = False
     layout_scheme: str = "xyz"                # 'xyz' | 'paper' | ...
     dtype: str = "float32"
     periodic: tuple[bool, bool, bool] = (False, False, False)
@@ -58,9 +64,6 @@ class LBMConfig:
     kernel_mode: str = "full"
 
     def __post_init__(self):
-        if self.split_stream:
-            raise NotImplementedError(
-                "split_stream is not ported to repro_torch yet")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"expected one of {BACKENDS}")
@@ -74,6 +77,12 @@ class SparseTiledLBM:
     """Sparse tiled LBM engine (the paper's contribution)."""
 
     def __init__(self, node_type: np.ndarray, cfg: LBMConfig, device=None):
+        if cfg.split_stream and cfg.backend != "gather":
+            raise ValueError(
+                "split_stream restructures the gather backend's streaming; "
+                f"backend must be 'gather' (got {cfg.backend!r} — the fused "
+                "kernel already computes its pull indices from static "
+                "tables)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lat = get_lattice(cfg.lattice)
@@ -85,7 +94,8 @@ class SparseTiledLBM:
         self._tables: StreamTables | None = None
         if cfg.backend == "gather":
             self._tables = build_stream_tables(
-                self.tiling, self.lat, cfg.layout_scheme, cfg.periodic)
+                self.tiling, self.lat, cfg.layout_scheme, cfg.periodic,
+                split=cfg.split_stream)
         self.dtype = DTYPES[cfg.dtype]
         self.backend = make_backend(cfg.backend, cfg, self.lat, self.tiling,
                                     self._tables, self.device)
@@ -113,15 +123,29 @@ class SparseTiledLBM:
         """Re-initialise f to the equilibrium state (t = 0)."""
         self.f = self.backend.initial_state(self._initial_feq())
 
+    # -------------------------------------------------------------- ensemble
+    def ensemble(self, batch: int):
+        """B independent flow states over THIS engine's tiling and tables,
+        advanced together (``repro_torch.sim.ensemble``).  The engine's own
+        state is never touched."""
+        from ..sim.ensemble import EnsembleLBM
+
+        return EnsembleLBM(self, batch)
+
     # ------------------------------------------------------------------ step
     def step(self, steps: int = 1) -> None:
         for _ in range(steps):
             self.f = self.backend.step(self.f)
+        reg = obs.get_metrics()
+        if reg.enabled:
+            reg.counter("lbm.step_total").inc(steps)
 
     def run(self, steps: int) -> None:
         """Advance ``steps`` iterations: one launch sequence per step,
         nothing synchronised."""
-        self.step(steps)
+        with obs.get_tracer().span("lbm.run", steps=steps), \
+                obs.annotation("lbm.run"):
+            self.step(steps)
 
     # ----------------------------------------------------------- diagnostics
     def macroscopics(self):
@@ -155,13 +179,16 @@ class SparseTiledLBM:
     def index_bytes_per_step(self) -> int:
         """Indirection-table bytes the step loads besides f itself.
 
-        gather backend: the (Q, T, n) int32 table.  fused backend: the
-        (T, 27) neighbour table plus the static (Q, n) pull perms/cases.
+        gather backend: the (Q, T, n) int32 table, or the compact split
+        tables under ``split_stream``.  fused backend: the (T, 27)
+        neighbour table plus the static (Q, n) pull perms/cases.
         """
         q, n = self.lat.q, self.tiling.nodes_per_tile
         t = self.tiling.num_tiles
         if self.cfg.backend == "fused":
             return 27 * t * 4 + q * n * 4 + q * n * 1
+        if self.cfg.split_stream:
+            return self.tables.split.index_bytes
         return q * t * n * 4
 
     def mflups(self, seconds_per_step: float) -> float:

@@ -7,6 +7,11 @@
     # the plain PyTorch versions of the kernels on the CPU (small cases)
     PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu
 
+    # split-phase streaming on the gather backend, with the metric registry
+    # (JSONL) and the host spans (Chrome trace) written out
+    PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu \
+        --backend gather --split-stream --metrics-out m.jsonl --trace t.json
+
 The run warms up with ``--steps`` steps, resets to t = 0 and times
 ``--steps`` steps.  On the card the time comes from CUDA events around the
 launch loop; on the CPU from the host clock.  It prints MFLUPS, the
@@ -23,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import collision as C
 from repro_torch.core.boundary import BoundarySpec
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM
@@ -121,15 +127,25 @@ def run_local(args) -> dict:
         layout_scheme="xyz" if args.backend == "fused" else "paper",
         dtype=args.dtype, boundaries=case.boundaries, periodic=case.periodic,
         force=case.force, backend=args.backend, tile_order=args.order,
-        node_order=args.node_order, use_kernel=args.backend == "gather")
+        node_order=args.node_order, use_kernel=args.backend == "gather",
+        split_stream=args.split_stream)
     eng = SparseTiledLBM(case.geometry, cfg, device=args.device)
     eng.run(args.steps)            # warm-up: kernels built and loaded
     eng.reset()                    # back to t=0: the timed run IS the physics
+    obs.get_tracer().reset()       # drop the warm-up's spans
     reset_launch_counts()
     dt = timed_run(eng, args.steps)
     launches = launch_counts()
     sec = dt / args.steps
     min_bytes = 2 * eng.lat.q * eng.n_fluid_nodes * eng.dtype.itemsize
+    reg = obs.get_metrics()
+    if reg.enabled:
+        for name, v in eng.model_metrics().items():
+            reg.gauge(name, case=args.case).set(v)
+        reg.gauge("lbm.step.mflups", case=args.case).set(eng.mflups(sec))
+        reg.gauge("lbm.step.seconds", case=args.case).set(sec)
+        reg.gauge("lbm.bw.achieved_gbs", case=args.case).set(min_bytes / sec / 1e9)
+        reg.gauge("lbm.mass.total", case=args.case).set(eng.total_mass())
     out = {
         "case": args.case, "scale": args.scale, "backend": args.backend,
         "dtype": args.dtype, "device": str(eng.device),
@@ -141,8 +157,9 @@ def run_local(args) -> dict:
         "eqn10_gbs": min_bytes / sec / 1e9, "launches": launches,
         "mass": eng.total_mass(),
     }
+    stream = "split" if args.split_stream else "mono"
     print(f"case={args.case} scale={args.scale} backend={args.backend} "
-          f"dtype={args.dtype} device={out['device_name']} "
+          f"stream={stream} dtype={args.dtype} device={out['device_name']} "
           f"fluid={out['fluid_nodes']:,} eta_t={out['eta_t']:.3f} "
           f"steps={args.steps} {dt:.4f}s -> {out['mflups']:.1f} MFLUPS, "
           f"Eqn-10 {out['eqn10_gbs']:.1f} GB/s, launches={launches}")
@@ -167,9 +184,32 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument("--backend", default="fused", choices=["gather", "fused"],
                     help="fused: kernel K1; gather: gather streaming + K2")
+    ap.add_argument("--split-stream", action="store_true", dest="split_stream",
+                    help="split-phase streaming: static interior permutation "
+                         "+ compact frontier tables (gather backend only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    run_local(ap.parse_args(argv))
+    ap.add_argument("--metrics-out", default=None, dest="metrics_out",
+                    help="write the obs metric registry as JSONL here")
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome-trace JSON (perfetto-loadable) of "
+                         "the host spans here; also names the step phases "
+                         "in torch.profiler traces")
+    args = ap.parse_args(argv)
+    if args.metrics_out or args.trace:
+        # before the engine is built, so construction spans are captured
+        obs.enable(metrics=True, trace=bool(args.trace))
+    run_local(args)
+    write_obs_outputs(args)
     return 0
+
+
+def write_obs_outputs(args) -> None:
+    """Export the global obs collectors per the CLI flags (shared with
+    ``repro_torch.launch.sim_serve``)."""
+    if getattr(args, "metrics_out", None):
+        print(f"metrics -> {obs.get_metrics().write_jsonl(args.metrics_out)}")
+    if getattr(args, "trace", None):
+        print(f"trace -> {obs.get_tracer().save(args.trace)}")
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _packed(dev, dtype, periodic=(False,) * 3):
+def _packed(dev, dtype, periodic=(False,) * 3, seed=0):
     g = random_spheres(box=16, porosity=0.6, diameter=8, seed=1)
     if not any(periodic):
         g = duct_wrap(g)
@@ -53,7 +53,7 @@ def _packed(dev, dtype, periodic=(False,) * 3):
     types = np.full((t + 1, n), SOLID, np.uint8)
     types[:t] = tiling.node_types
     f = np.zeros((t + 1, 19, n))
-    f[:t] = np.random.default_rng(0).uniform(0.02, 0.1, (t, 19, n))
+    f[:t] = np.random.default_rng(seed).uniform(0.02, 0.1, (t, 19, n))
     nbrs = k1.build_neighbor_table(tiling, periodic)
     return (torch.as_tensor(f, dtype=dtype, device=dev),
             torch.as_tensor(types, device=dev),
@@ -160,6 +160,91 @@ def test_fused_engine_matches_gather_with_k2(dev):
     fluid = ~e_f._solid[None]
     diff = (e_f.backend.canonical(e_f.f) - e_g.backend.canonical(e_g.f)).abs()
     assert float(diff[fluid.expand_as(diff)].max()) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", [C.LBGK, C.LBMRT])
+@pytest.mark.parametrize("periodic", [(False,) * 3, (True,) * 3])
+def test_k1_over_replicated_tiles_equals_single_launches(dev, dtype, model,
+                                                         periodic):
+    """The ensembles' launch: K1 over 3*T tiles with the replicated tables
+    is bit for bit three single-replica launches, and within tolerance of
+    its plain version on the same tables."""
+    g = random_spheres(box=16, porosity=0.6, diameter=8, seed=1)
+    if not any(periodic):
+        g = duct_wrap(g)
+    cfg = LBMConfig(backend="fused", periodic=periodic,
+                    collision=C.CollisionConfig(model, tau=0.7),
+                    dtype="float64" if dtype == torch.float64 else "float32")
+    eng = SparseTiledLBM(g, cfg, device=dev)
+    types, nbrs, _ = eng.backend._ensemble_tables(3)
+    t = eng.tiling.num_tiles
+    singles = [_packed(dev, dtype, periodic, seed=i) for i in range(3)]
+    f = torch.cat([x[0][:t] for x in singles] + [singles[0][0][t:]])
+    args = (eng.lat, cfg.collision)
+    got = k1.stream_collide_tiles(f, types, nbrs, *args)
+    for i, (fi, ti, ni) in enumerate(singles):
+        assert torch.equal(got[i * t:(i + 1) * t], k1.stream_collide_tiles(fi, ti, ni, *args)[:t])
+    want = k1.stream_collide_tiles_ref(f, types, nbrs, *args)
+    fluid = (types != SOLID)[:, None, :].expand_as(f)
+    assert float((got - want).abs()[fluid].max()) <= TOL[dtype]
+    assert not got[-1].any()
+
+
+def test_fused_ensemble_matches_single_engines(dev):
+    """One K1 launch per ensemble step over 3*T tiles, with the replicated
+    NEBB pass: each replica within 1e-12 of a single engine."""
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    cfg = LBMConfig(backend="fused", dtype="float64", boundaries=_Z_FLOW)
+    eng = SparseTiledLBM(g, cfg, device=dev)
+    ens = eng.ensemble(3)
+    feq = eng._initial_feq()
+    singles = []
+    for b in range(3):
+        single = SparseTiledLBM(g, cfg, device=dev)
+        single.f = single.backend.initial_state(feq * (1.0 + 0.01 * (b + 1)))
+        ens.set_replica(b, feq * (1.0 + 0.01 * (b + 1)))
+        singles.append(single)
+    k1.stream_collide_tiles.launches = 0
+    ens.run(10)
+    assert k1.stream_collide_tiles.launches == 10
+    fluid = ~eng._solid[None]
+    for b, single in enumerate(singles):
+        single.run(10)
+        want = single.backend.canonical(single.f)
+        diff = (ens.replica_canonical(b) - want).abs()
+        assert float(diff[fluid.expand_as(diff)].max()) <= 1e-12
+
+
+def test_sim_service_on_the_card_matches_the_cpu(dev):
+    """A fused float64 service on the card (K1 once per group step) gives
+    the CPU service's results to 1e-12."""
+    from repro_torch import obs
+    from repro_torch.launch.lbm import _Z_FLOW
+    from repro_torch.sim import SimService
+
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    cfg = LBMConfig(backend="fused", dtype="float64", boundaries=_Z_FLOW)
+    results = {}
+    for device in ("cpu", dev):
+        svc = SimService(slots=2, device=device)
+        for steps in (6, 9, 4):
+            svc.submit(g, cfg, steps=steps, probes=((10, 20, 1),))
+        rec = obs.SpanRecorder()
+        k1.stream_collide_tiles.launches = 0
+        with obs.use(trace=rec):
+            svc.run()
+        if device is dev:
+            assert k1.stream_collide_tiles.launches == len(rec.find("sim.group.step"))
+        results[str(device)] = [s.result for s in sorted(svc.finished,
+                                                         key=lambda s: s.sid)]
+    for a, b in zip(results["cpu"], results[str(dev)]):
+        assert a["steps"] == b["steps"]
+        assert abs(a["mass"] - b["mass"]) <= 1e-12 * abs(a["mass"])
+        assert abs(a["mean_speed"] - b["mean_speed"]) <= 1e-12
+        assert abs(a["probes"][0]["rho"] - b["probes"][0]["rho"]) <= 1e-12
 
 
 def _qkv(dev, dtype, b, s, t, h, kvh, hd, seed=0):

@@ -179,9 +179,13 @@ def test_config_from_reference_round_trip():
 
 
 def test_config_from_reference_rejects_split_stream():
+    """split_stream carries over from the reference's dict; as in the
+    reference, an engine rejects it on the fused backend only."""
     d = config_to_dict(RConfig(split_stream=True))
-    with pytest.raises(NotImplementedError, match="split_stream"):
-        convert.config_from_reference(d)
+    assert convert.config_from_reference(d).split_stream
+    fused = convert.config_from_reference(dict(d, backend="fused"))
+    with pytest.raises(ValueError, match="split_stream"):
+        PEngine(_spheres(), fused, device="cpu")
 
 
 @pytest.mark.parametrize("layout", ["xyz", "paper"])

@@ -26,6 +26,8 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import repro_torch.launch.lbm
+import repro_torch.launch.sim_serve
+import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -42,7 +44,7 @@ def test_port_and_chip_smoke_load_no_jax_or_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
+    assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 25
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -53,6 +55,31 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
             SparseTiledLBM(g, LBMConfig(backend=backend))
     eng = SparseTiledLBM(g, LBMConfig(backend="fused"), device="cpu")
     assert eng.f.device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.core.dense import DenseLBM
+    from repro_torch.sim import EngineRegistry, SimService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = random_spheres(box=8, porosity=0.6, diameter=4, seed=0)
+    for build in (lambda: DenseLBM(g, LBMConfig()), EngineRegistry, SimService):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert SimService(device="cpu").registry.device.type == "cpu"
+
+
+def test_sim_serve_launcher_fails_loudly_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.sim_serve",
+                          "--cases", "duct", "--sessions", "1", "--steps", "2"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "MFLUPS" not in out.stdout
 
 
 def test_wrappers_on_cpu_tensors_launch_nothing():
@@ -71,7 +98,7 @@ def test_wrappers_on_cpu_tensors_launch_nothing():
 @pytest.mark.parametrize("kw,exc", [
     (dict(backend="fused", layout_scheme="paper"), ValueError),
     (dict(backend="fused", periodic=(True, False, False)), ValueError),
-    (dict(split_stream=True), NotImplementedError),
+    (dict(split_stream=True, backend="fused"), ValueError),
     (dict(backend="dense"), ValueError),
 ])
 def test_engine_keeps_reference_errors(kw, exc):
