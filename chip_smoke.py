@@ -28,6 +28,20 @@ Phases (any failure exits non-zero and prints no result line):
    each kernel of the run must have launched once per step.  At the main
    path's shapes each kernel is held against its plain version and timed,
    beside its bound;
+4b. drive the slab-sharded engine (``repro_torch.dist.lbm.ShardedLBM``) on
+   the same case, fused LBGK incompressible, in float64 and float32, with D
+   = 2 and D = 4 slabs on the one card: after 20 steps from t = 0 its owned
+   tiles are held to the single fused engine's (1e-12 in float64, bit for
+   bit reported), K1 must have launched D x steps, each slab's K1 is held
+   against its plain version on the slab's state; then 100 steps from t =
+   0 between CUDA events (ms per step, MFLUPS, the Eqn-10 share), the halo
+   bytes per step (the reference's padded count and the bytes moved), the
+   exchange alone between CUDA events, a profiler pass that traces every K1
+   launch and gives the exchange's device time (its ``lbm.phase.halo``
+   ranges) and the device idle share, and the peak device memory; then the
+   gather engine with K2 at spheres scale 1, D = 4, float64, against the
+   single gather + K2 engine, K2 launched D x steps and held per slab
+   against its plain version;
 5. drive the simulation-serving path (``repro_torch.sim``):
    (a) K1 over a B*T grid (B = 3 replicated tables, as ensembles launch
    it) on the small walled and periodic geometries, full mode, LBGK and
@@ -119,6 +133,7 @@ from repro_torch.core.engine import LBMConfig, SparseTiledLBM  # noqa: E402
 from repro_torch.core.lattice import get_lattice  # noqa: E402
 from repro_torch.core.tiling import SOLID, tile_geometry  # noqa: E402
 from repro_torch.data import geometry as geo  # noqa: E402
+from repro_torch.dist.lbm import ShardedLBM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import collide as k2  # noqa: E402
@@ -150,6 +165,10 @@ SOURCE = "src/repro_torch/csrc"
 # --steps 50 --stagger 5 (budgets stay under the spheres case's divergence)
 SIM_SLOTS, SIM_SESSIONS, SIM_STEPS, SIM_STAGGER = 4, 6, 50, 5
 ENS_BATCH = 3                # K1 over a B*T grid on the small geometries
+# the sharded engine: slab counts on the one card, and the steps after
+# which its owned tiles are held to the single engine's
+SHARD_SLABS = (2, 4)
+SHARD_PARITY_STEPS = 20
 # the serving run
 ARCH = "starcoder2-3b"
 SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 4096, 8, 2048, 32
@@ -211,18 +230,34 @@ def interleaved_ms(fns: dict, warm: int = 2) -> dict[str, float]:
 WINDOW = "chip_smoke.window"
 
 
+# The kernel of ``torch.cuda._sleep``: launched first in a profiled window,
+# its record marks the window's start on the device's clock.
+MARKER_KERNEL = "spin_kernel"
+
+
 PROFILE_PASSES = 3
 
 
 K1_KERNEL = "stream_collide_kernel"
 
 
-def _trace_once(fn, warm) -> tuple[list, list, int, str]:
+def _trace_once(fn, warm, scopes=()) -> tuple[list | None, list, int, str, dict]:
     """One profiler session: ``warm()``, then ``fn()`` inside a window.
     Returns the device ops (start us, end us, name) that start inside the
     window, sorted, the top-level host torch ops inside it, the K1
-    launches ``fn`` made by the wrapper's own count, and K1's records
-    against its launches over the whole session, warm-up included."""
+    launches ``fn`` made by the wrapper's own count, K1's records against
+    its launches over the whole session, warm-up included, and for each
+    name in ``scopes`` the device time (us) of the kernels launched under
+    the host ranges of that name in the window (``obs.phase_scope`` ranges,
+    with device annotations on).
+
+    The window's device ops are told apart on the device's own clock: the
+    profiler places device records against host ones with an offset that
+    can be off by milliseconds, so a kernel launched inside the window may
+    carry a start before the window's host start.  The window opens with
+    a marker kernel, launched after the warm-up has finished on the card,
+    and every device op that starts at or after the marker is the window's.
+    Device ops come back as None when the marker's record was lost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -231,45 +266,64 @@ def _trace_once(fn, warm) -> tuple[list, list, int, str]:
         warm()
         torch.cuda.synchronize()
         with record_function(WINDOW):
+            torch.cuda._sleep(1)
             before = k1.stream_collide_tiles.launches
             fn()
             launched = k1.stream_collide_tiles.launches - before
             torch.cuda.synchronize()
-    session = (sum(e.device_type == DeviceType.CUDA and K1_KERNEL in e.name
-                   for e in prof.events()),
-               k1.stream_collide_tiles.launches - first)
     events = prof.events()
+    session = (sum(e.device_type == DeviceType.CUDA and K1_KERNEL in e.name
+                   for e in events),
+               k1.stream_collide_tiles.launches - first)
+    device = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.device_type == DeviceType.CUDA and e.name != WINDOW
+              and not getattr(e, "is_user_annotation", False)]
+    marks = [start for start, _, name in device if MARKER_KERNEL in name]
+    dev = None
+    if len(marks) == 1:
+        dev = sorted(op for op in device
+                     if op[0] >= marks[0] and MARKER_KERNEL not in op[2])
+    elif not device:
+        dev = []
     (window,) = [e for e in events
                  if e.name == WINDOW and e.device_type == DeviceType.CPU]
     t0 = window.time_range.start
-    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                 if e.device_type == DeviceType.CUDA and e.name != WINDOW
-                 and e.time_range.start >= t0)
     host = [e for e in events if e.device_type == DeviceType.CPU
             and e.name.startswith("aten::") and e.cpu_parent is not None
             and e.cpu_parent.name == WINDOW]
-    return dev, host, launched, "{} records of {} launches".format(*session)
+    scope_us = {name: sum(e.device_time_total for e in events
+                          if e.name == name and e.device_type == DeviceType.CPU
+                          and e.time_range.start >= t0) for name in scopes}
+    return (dev, host, launched, "{} records of {} launches".format(*session),
+            scope_us)
 
 
-def traced(fn, warm, what: str) -> tuple[list, list, list[float]]:
+def traced(fn, warm, what: str,
+           scopes=()) -> tuple[list, list, list[float], dict]:
     """``fn()`` under ``torch.profiler``, after ``warm()`` in the same
     session (a session can lose the records of the first kernels it sees,
     so the warm-up takes that loss and only what ``fn`` runs is kept).
-    Returns ``_trace_once``'s device and host ops and K1's launch times
-    (us).  A trace must hold every K1 launch ``fn`` made: the profiler
-    now and then drops a kernel record, so a pass that lost one is
-    discarded and repeated, up to ``PROFILE_PASSES`` passes; ``fn`` and
-    ``warm`` must therefore be repeatable.  An empty trace (the profiler
-    saw no device time) is returned as it is."""
+    Returns ``_trace_once``'s device and host ops, K1's launch times (us)
+    and the device time under each of ``scopes``.  A trace must hold every
+    K1 launch ``fn`` made: the profiler now and then drops a kernel record,
+    so a pass that lost one, or lost the window's marker, is discarded and
+    repeated, up to ``PROFILE_PASSES`` passes; ``fn`` and ``warm`` must
+    therefore be repeatable.  An empty trace (the profiler saw no device
+    time) is returned as it is."""
     for attempt in range(1, PROFILE_PASSES + 1):
-        dev, host, launched, session = _trace_once(fn, warm)
+        dev, host, launched, session, scope_us = _trace_once(fn, warm, scopes)
+        if dev is None:
+            log(f"[profiler] pass {attempt} of {PROFILE_PASSES} over {what} lost "
+                f"the window's marker kernel (whole session: {session}): pass "
+                "discarded")
+            continue
         k1_us = [b - a for a, b, name in dev if K1_KERNEL in name]
         if not dev or len(k1_us) == launched:
-            return dev, host, k1_us
+            return dev, host, k1_us, scope_us
         log(f"[profiler] pass {attempt} of {PROFILE_PASSES} over {what} traced "
             f"{len(k1_us)} of K1's {launched} launches (whole session, warm-up "
             f"included: {session}): pass discarded")
-    raise AssertionError(f"the profiler traced {len(k1_us)} of K1's {launched} "
+    raise AssertionError(f"the profiler did not trace all of K1's {launched} "
                          f"launches in {what}, in each of {PROFILE_PASSES} passes")
 
 
@@ -341,30 +395,33 @@ def hopper_resources(text: str) -> list[tuple[str, int, int]]:
 
 def k3_kernel_names(calls) -> list[str | None]:
     """The device kernel of K3 that each of ``calls`` (one K3 launch each)
-    ran, read by the profiler: the K3 kernel that starts inside call i's
-    ``record_function`` range (the call synchronises) is call i's, None
-    where the profiler saw none.  Each call runs once before the session."""
+    ran, read by the profiler: each call synchronises and is preceded by a
+    marker kernel, and the K3 kernel between marker i and marker i + 1 on
+    the device's clock is call i's (the host's clock can be milliseconds
+    off the device records).  None where the profiler saw none, and for
+    every call when a marker's record was lost.  Each call runs once
+    before the session."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     for fn in calls:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, fn in enumerate(calls):
-            with record_function(f"k3_call_{i}"):
-                fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    ranges = {e.name: e.time_range for e in events if e.name.startswith("k3_call_")}
-    kernels = [(e.time_range.start, re.sub(r"<.*", "", e.name).split("::")[-1])
-               for e in events if e.device_type == DeviceType.CUDA and "flash_fwd" in e.name]
-    names = []
-    for i in range(len(calls)):
-        r = ranges.get(f"k3_call_{i}")
-        inside = [n for t, n in kernels if r is not None and r.start <= t <= r.end]
-        names.append(inside[0] if len(inside) == 1 else None)
-    return names
+        for fn in calls:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+    groups: list[list[str]] = []
+    for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                          if e.device_type == DeviceType.CUDA):
+        if MARKER_KERNEL in name:
+            groups.append([])
+        elif "flash_fwd" in name and groups:
+            groups[-1].append(re.sub(r"<.*", "", name).split("::")[-1])
+    if len(groups) != len(calls):
+        return [None] * len(calls)
+    return [g[0] if len(g) == 1 else None for g in groups]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
@@ -381,6 +438,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.rng = np.random.default_rng(0)
         self.kernels: dict[str, dict] = {}
+        self.sharded: dict[tuple, dict] = {}
 
     # ------------------------------------------------------------ phase 1
     def build_kernels(self) -> None:
@@ -513,7 +571,7 @@ class Smoke:
         K1's part of it (every launch traced), and the host's top-level
         torch ops per step.  The idle share is against the unprofiled step
         time ``sec_per_step``."""
-        dev, host_ops, k1_us = traced(lambda: eng.run(steps), lambda: eng.run(2),
+        dev, host_ops, k1_us, _ = traced(lambda: eng.run(steps), lambda: eng.run(2),
                                       f"{steps} {eng.cfg.dtype} steps")
         if not dev:
             log(f"[profile {eng.cfg.dtype}] the profiler saw no device time: "
@@ -551,6 +609,8 @@ class Smoke:
             f"{gbs * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s; launches "
             f"{json.dumps(launches)}; mass {eng.total_mass():.6f}, max |f| {fmax:.4f}")
         self.profile_steps(eng, sec)
+        self.sharded[(dtype, 1)] = {"ms_per_step": sec * 1e3, "mflups": eng.mflups(sec),
+                                    "eqn10_share": gbs * 1e9 / HBM_BYTES_PER_S}
 
         # K1 at the main path's shapes, on the run's own state
         b = eng.backend
@@ -692,6 +752,201 @@ class Smoke:
             torch.cuda.empty_cache()
         self.fused_vs_gather(case)
         log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ----------------------------------------------------------- phase 4b
+    def _owned_parity(self, eng, single) -> tuple[float, bool]:
+        """(max |sharded - single| over the owned tiles' fluid slots, whether
+        every owned tile is bit for bit equal), on the canonical states."""
+        want = single.backend.canonical(single.f)
+        bits = torch.int64 if eng.dtype == torch.float64 else torch.int32
+        err, bitwise = 0.0, True
+        for d, dev, b, f in zip(eng.slab_ids, eng.devices, eng.backends, eng.f):
+            rows, g_rows = (torch.as_tensor(x, device=dev)
+                            for x in eng.plan.owned_rows(d, single.tiling))
+            got = b.canonical(f)[:, rows]
+            ref = want[:, g_rows]
+            bitwise &= torch.equal(got.contiguous().view(bits), ref.contiguous().view(bits))
+            err = max(err, max_err(got, ref, (~single._solid[g_rows])[None].expand_as(got)))
+        return err, bitwise
+
+    def sharded_fused(self, case, dtype: str, slabs: int, single) -> None:
+        """The sharded fused engine at full size against the single fused
+        engine ``single`` (at step ``SHARD_PARITY_STEPS`` from t = 0), then
+        timed from t = 0."""
+        tag = f"[sharded fused {dtype} D={slabs}]"
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ShardedLBM(case.geometry, single.cfg, slabs=slabs, devices=self.dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        _, launches = self._main_run(eng, SHARD_PARITY_STEPS)
+        if launches["stream_collide_tiles"] != slabs * SHARD_PARITY_STEPS:
+            raise AssertionError(f"{tag} K1 launched {launches} times in "
+                                 f"{SHARD_PARITY_STEPS} steps of {slabs} slabs")
+        err, bitwise = self._owned_parity(eng, single)
+        if not err <= TOL[eng.dtype] or not all(
+                bool(torch.isfinite(f).all()) for f in eng.f):
+            raise AssertionError(f"{tag} owned tiles vs the single engine after "
+                                 f"{SHARD_PARITY_STEPS} steps: max |err| {err:.3e}")
+
+        # K1 per slab at the slab's shapes, on the run's own state
+        k_err, plain_ms, rows = 0.0, 0.0, []
+        for b, f in zip(eng.backends, eng.f):
+            args = (f, b._types, b._nbrs, eng.lat, eng.cfg.collision, 4, None, "full")
+            got = k1.stream_collide_tiles(*args, out=b.other(f)).clone()
+            torch.cuda.synchronize()
+            want = k1.stream_collide_tiles_ref(*args)
+            fluid = (b._types != SOLID)[:, None, :].expand_as(f)
+            k_err = max(k_err, max_err(got, want, fluid))
+            del got, want, fluid
+            plain_ms += time_ms(lambda: k1.stream_collide_tiles_ref(*args), 3, 1)
+            rows.append(args)
+        if not k_err <= TOL[eng.dtype]:
+            raise AssertionError(f"{tag} K1 per slab vs plain: {k_err:.3e}")
+
+        def k1_step():
+            for b, args in zip(eng.backends, rows):
+                k1.stream_collide_tiles(*args, out=b.other(args[0]))
+
+        k1_ms = time_ms(k1_step, 50)
+        t = sum(b.tiling.num_tiles for b in eng.backends)
+        q, n, isz = eng.lat.q, 64, eng.dtype.itemsize
+        nbytes = (2 * t * q * n * isz + (t + slabs) * n + t * 27 * 4
+                  + slabs * q * n * 5)
+        bms, by = bound(nbytes, t * n * collision_flops_per_node(q, eng.lat.e, False),
+                        eng.dtype)
+        del rows
+
+        # the timed run from t = 0 (the case diverges near step 170); the peak
+        # memory is the engine's run, not the plain versions' checks above
+        eng.run(WARM)
+        eng.reset()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, launches = self._main_run(eng, STEPS)
+        if launches["stream_collide_tiles"] != slabs * STEPS:
+            raise AssertionError(f"{tag} K1 launched {launches} times in {STEPS} "
+                                 f"steps of {slabs} slabs")
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        sec = seconds / STEPS
+        nf = eng.n_fluid_nodes
+        share = 2 * q * nf * isz / sec / HBM_BYTES_PER_S
+        ex_ms = time_ms(eng.exchange, 50)
+        obs.set_device_annotations(True)
+        try:
+            dev, _, k1_us, scope_us = traced(
+                lambda: eng.run(10), lambda: eng.run(2),
+                f"10 sharded {dtype} steps of {slabs} slabs",
+                scopes=("lbm.phase.halo",))
+        finally:
+            obs.set_device_annotations(False)
+        if dev:
+            halo_ms = scope_us["lbm.phase.halo"] / 1e3 / 10
+            busy_ms = busy_us(dev) / 1e3 / 10
+            prof = (f"profiled: halo exchange {halo_ms:.4f} ms device time per "
+                    f"step, K1 {sum(k1_us) / 1e3 / 10:.4f} ms per step "
+                    f"({len(k1_us)} of {10 * slabs} launches traced), device "
+                    f"busy {busy_ms:.4f} ms of {sec * 1e3:.4f} (idle share "
+                    f"{1 - busy_ms / (sec * 1e3):.3f})")
+        else:
+            halo_ms = float("nan")
+            prof = "profiler saw no device time: exchange device time not measured"
+        self.sharded[(dtype, slabs)] = {
+            "ms_per_step": sec * 1e3, "mflups": eng.mflups(sec), "eqn10_share": share,
+            "exchange_ms": ex_ms, "halo_ms": halo_ms}
+        if dtype == "float64" or slabs == max(SHARD_SLABS):
+            name = f"stream_collide_tiles[{'' if dtype == 'float64' else dtype + ' '}" \
+                f"sharded D={slabs}]"
+            self.kernels[name] = {
+                "name": name, "route": "cuda", "source": f"{SOURCE}/stream_collide.cu",
+                "replaces": "src/repro/kernels/stream_collide.py:206",
+                "launches": launches["stream_collide_tiles"], "max_abs_err": k_err,
+                "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None, "per": f"step: {slabs} launches, one per slab"}
+        log(f"{tag} spheres scale 4: slabs of {[b.tiling.num_tiles for b in eng.backends]} "
+            f"tiles ({t} with halos, {t / single.tiling.num_tiles:.4f} of the single "
+            f"engine's), {sum(b._bc is not None for b in eng.backends)} slabs with "
+            f"boundary nodes; set-up {setup:.1f} s; owned tiles vs the single engine "
+            f"after {SHARD_PARITY_STEPS} steps: max |err| {err:.3e}, "
+            f"{'bit for bit' if bitwise else 'NOT bit for bit'}; K1 per slab vs plain "
+            f"|err| {k_err:.3e}; {STEPS} steps in {seconds:.4f} s = {sec * 1e3:.4f} "
+            f"ms/step, {eng.mflups(sec):.1f} MFLUPS, Eqn-10 share {share:.3f}; K1 "
+            f"launches {launches['stream_collide_tiles']} = {slabs} x {STEPS}; K1 of "
+            f"one step (all slabs) {k1_ms:.4f} ms (bound {bms:.4f} ms by {by}, "
+            f"{bms / k1_ms:.3f} of it), plain {plain_ms:.2f} ms; {prof}; peak "
+            f"device memory of the timed run {peak:.2f} GiB above the "
+            f"{resident / 2**30:.2f} GiB resident before the engine was built")
+        log(f"{tag} halo: {eng.halo_bytes_per_step()} B per step by the reference's "
+            f"count (padded to the widest layer), {eng.halo_bytes_moved_per_step()} "
+            f"B moved by the port's exchange in {len(eng.hops)} hops; the exchange "
+            f"alone {ex_ms:.4f} ms (CUDA events, median of 50)")
+
+    def sharded_gather(self) -> None:
+        """Gather + K2 sharded against the single gather + K2 engine at
+        spheres scale 1, D = 4, float64."""
+        slabs = max(SHARD_SLABS)
+        case = launcher.make_case("spheres", 1)
+        single = self._engine(case, "float64", layout_scheme="paper", use_kernel=True)
+        eng = ShardedLBM(case.geometry, single.cfg, slabs=slabs, devices=self.dev)
+        single.run(SHARD_PARITY_STEPS)
+        _, launches = self._main_run(eng, SHARD_PARITY_STEPS)
+        if launches["collide_tiles"] != slabs * SHARD_PARITY_STEPS:
+            raise AssertionError(f"sharded gather: K2 launched {launches}")
+        err, bitwise = self._owned_parity(eng, single)
+        if not err <= TOL[torch.float64]:
+            raise AssertionError(f"sharded gather + K2 vs single: {err:.3e}")
+        # K2 per slab at the slab's post-streaming shapes
+        lat, cfg = eng.lat, eng.cfg.collision
+        k_err, plain_ms, ins = 0.0, 0.0, []
+        for b, f in zip(eng.backends, eng.f):
+            f_in = b._stream(f)
+            got = k2.collide_tiles(f_in, b._solid, lat, cfg)
+            torch.cuda.synchronize()
+            want = k2.collide_tiles_ref(f_in, b._solid, lat, cfg)
+            k_err = max(k_err, max_err(got, want, ~b._solid[None].expand_as(got)))
+            plain_ms += time_ms(lambda: k2.collide_tiles_ref(f_in, b._solid, lat, cfg), 3, 1)
+            ins.append((f_in, b._solid))
+        if not k_err <= TOL[torch.float64]:
+            raise AssertionError(f"K2 per slab vs plain: {k_err:.3e}")
+        ms = time_ms(lambda: [k2.collide_tiles(x, s, lat, cfg) for x, s in ins], 50)
+        t = sum(x.shape[1] for x, _ in ins)
+        q, n = lat.q, 64
+        bms, by = bound(2 * q * t * n * 8 + t * n,
+                        t * n * collision_flops_per_node(q, lat.e, False), torch.float64)
+        name = f"collide_tiles[sharded D={slabs}]"
+        self.kernels[name] = {
+            "name": name, "route": "cuda", "source": f"{SOURCE}/collide.cu",
+            "replaces": "src/repro/kernels/collide.py:127",
+            "launches": launches["collide_tiles"], "max_abs_err": k_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "per": f"step: {slabs} launches, one per slab"}
+        log(f"[sharded gather+K2 float64 D={slabs}] spheres scale 1: owned tiles vs "
+            f"the single gather + K2 engine after {SHARD_PARITY_STEPS} steps max "
+            f"|err| {err:.3e} ({'bit for bit' if bitwise else 'NOT bit for bit'}); "
+            f"K2 launches {launches['collide_tiles']} = {slabs} x "
+            f"{SHARD_PARITY_STEPS}; K2 per slab vs plain |err| {k_err:.3e}; K2 of one "
+            f"step (all slabs) {ms:.4f} ms (bound {bms:.4f} ms by {by}), plain "
+            f"{plain_ms:.2f} ms")
+
+    def sharded_main(self) -> None:
+        case = launcher.make_case("spheres", 4)
+        for dtype in ("float64", "float32"):
+            single = self._engine(case, dtype, backend="fused")
+            single.run(SHARD_PARITY_STEPS)
+            for slabs in SHARD_SLABS:
+                self.sharded_fused(case, dtype, slabs, single)
+                torch.cuda.empty_cache()
+            del single
+            torch.cuda.empty_cache()
+        self.sharded_gather()
+        torch.cuda.empty_cache()
+        log("[sharded summary] spheres scale 4 fused, ms/step | MFLUPS | Eqn-10 share "
+            "| exchange ms (alone, CUDA events) | halo ms (profiled); D = 1 is phase 4's "
+            "single engine: " + "; ".join(
+                f"{dtype} D={d}: " + " | ".join(
+                    f"{r[k]:.4f}" if k in r else "-"
+                    for k in ("ms_per_step", "mflups", "eqn10_share", "exchange_ms",
+                              "halo_ms"))
+                for (dtype, d), r in sorted(self.sharded.items())))
 
     # ------------------------------------------------------------ phase 5
     def check_k1_bt_grid(self) -> None:
@@ -849,7 +1104,7 @@ class Smoke:
         (after 2 warm-up steps in the same session): K1 per launch, the
         rest (the NEBB pass) per step, and the device busy time per step,
         which it also returns (ms)."""
-        dev, _, k1_us = traced(lambda: ens.run(steps), lambda: ens.run(2),
+        dev, _, k1_us, _ = traced(lambda: ens.run(steps), lambda: ens.run(2),
                                f"{steps} ensemble steps")
         if not dev:
             return "not measured (the profiler saw no device time)", float("nan")
@@ -886,7 +1141,7 @@ class Smoke:
             with obs.use(trace=state["rec"]):
                 state["svc"].run()
 
-        dev, _, k1_us = traced(run, warm, "the service's run")
+        dev, _, k1_us, _ = traced(run, warm, "the service's run")
         steps = len(state["rec"].find("sim.group.step"))
         state.clear()
         if not dev:
@@ -1222,6 +1477,9 @@ def main() -> int:
     smoke.check_k2_small()
     smoke.main_path()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    smoke.sharded_main()
+    log(f"[sharded] phase in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     smoke.sim_main()
     log(f"[sim] phase in {time.perf_counter() - t1:.1f} s")

@@ -333,10 +333,23 @@ class FusedBackend:
                                  mode=cfg.kernel_mode,
                                  node_order=cfg.node_order, out=out)
         if bc is not None:
-            nebb_boundary_pass(f, out, self.lat, cfg.collision, cfg.force,
-                               bc["specs"], bc["tiles"], bc["gather"],
-                               bc["type_masks"], bc["solid"])
+            self.boundary_pass(f, out, bc)
         return out
+
+    def boundary_pass(self, f, out, bc=None) -> None:
+        """The NEBB pass alone over ``bc``'s tiles (default: the engine's;
+        none without boundary nodes), from the pre-step ``f`` into ``out``,
+        in place."""
+        bc = self._bc if bc is None else bc
+        if bc is not None:
+            nebb_boundary_pass(f, out, self.lat, self.cfg.collision,
+                               self.cfg.force, bc["specs"], bc["tiles"],
+                               bc["gather"], bc["type_masks"], bc["solid"])
+
+    def stream_collide(self, f: torch.Tensor) -> torch.Tensor:
+        """K1 alone from ``f`` into the other buffer of the pair; a step is
+        this and then :meth:`boundary_pass`."""
+        return self._advance(f, self.other(f), self._types, self._nbrs, None)
 
     def step(self, f: torch.Tensor) -> torch.Tensor:
         return self._advance(f, self.other(f), self._types, self._nbrs,

@@ -73,6 +73,19 @@ class LBMConfig:
             raise ValueError(f"kernel_mode must be one of {MODES}")
 
 
+def initial_feq(cfg: LBMConfig, lat, solid: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The t = 0 state: the equilibrium at (rho0, u0) on every fluid slot of
+    the (T, n) ``solid`` mask's tiles, zero at solid slots; canonical
+    (Q, T, n) on ``solid``'s device."""
+    t, n = solid.shape
+    kw = dict(dtype=dtype, device=solid.device)
+    rho = torch.full((t, n), cfg.rho0, **kw)
+    u = torch.as_tensor(cfg.u0, **kw)[:, None, None].expand(3, t, n)
+    feq = col.equilibrium(rho, u, lat, cfg.collision.fluid)
+    return feq.masked_fill(solid[None], 0.0)
+
+
 class SparseTiledLBM:
     """Sparse tiled LBM engine (the paper's contribution)."""
 
@@ -112,12 +125,7 @@ class SparseTiledLBM:
 
     # ------------------------------------------------------------------ init
     def _initial_feq(self) -> torch.Tensor:
-        t, n = self.tiling.num_tiles, self.tiling.nodes_per_tile
-        kw = dict(dtype=self.dtype, device=self.device)
-        rho = torch.full((t, n), self.cfg.rho0, **kw)
-        u = torch.as_tensor(self.cfg.u0, **kw)[:, None, None].expand(3, t, n)
-        feq = col.equilibrium(rho, u, self.lat, self.cfg.collision.fluid)
-        return feq.masked_fill(self._solid[None], 0.0)       # (Q, T, n)
+        return initial_feq(self.cfg, self.lat, self._solid, self.dtype)
 
     def reset(self) -> None:
         """Re-initialise f to the equilibrium state (t = 0)."""

@@ -39,6 +39,8 @@ def neighbor_offset_index(dx: int, dy: int, dz: int) -> int:
 # Z-curve; "hilbert" the 3-D Hilbert curve (Skilling); "morton_slab" is
 # Morton within each z tile-layer, z layers contiguous.
 TILE_ORDERS = ("zmajor", "morton", "hilbert", "morton_slab")
+# orderings that keep runs of z tile-layers contiguous (dist.lbm.SlabPlan)
+SLAB_COMPATIBLE_ORDERS = ("zmajor", "morton_slab")
 
 # within-tile node orders: "canonical" x + a*y + a^2*z; "sfc" the 3-D Morton
 # order of the local coordinates; "frontier_last" tile-face nodes form a

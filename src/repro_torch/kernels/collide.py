@@ -130,9 +130,12 @@ def collide_tiles(f: torch.Tensor, solid: torch.Tensor, lat: Lattice,
     out = torch.empty_like(f)
     m = f.shape[1] * f.shape[2]
     lib = _lib()
-    code = lib.repro_collide_tiles(
-        build.ptr(f), build.ptr(solid), build.ptr(a_mat), build.ptr(out), m,
-        lat.q, build.DTYPE_CODES[f.dtype], *args, build.stream(f.device))
+    # the launch function launches into, and sets attributes on, the
+    # current card: make it the tensor's, which may be another card
+    with torch.cuda.device(f.device):
+        code = lib.repro_collide_tiles(
+            build.ptr(f), build.ptr(solid), build.ptr(a_mat), build.ptr(out), m,
+            lat.q, build.DTYPE_CODES[f.dtype], *args, build.stream(f.device))
     build.check(lib, code, "collide_tiles")
     collide_tiles.launches += 1
     return out

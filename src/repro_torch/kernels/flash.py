@@ -120,10 +120,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     lib = _lib()
-    code = lib.repro_flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, s, t, h,
-        kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
-        float(softcap or 0.0), int(causal), build.stream(q.device))
+    # the launch function launches into, and sets attributes on, the
+    # current card: make it the tensor's, which may be another card
+    with torch.cuda.device(q.device):
+        code = lib.repro_flash_attention(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, s, t,
+            h, kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
+            float(softcap or 0.0), int(causal), build.stream(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out

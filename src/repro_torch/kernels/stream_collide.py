@@ -214,11 +214,14 @@ def stream_collide_tiles(f, node_types, neighbors, lat: Lattice,
     else:
         a_mat, args = None, (0, 0, 0, 1.0, 0.0, 0.0, 0.0)
     lib = _lib()
-    code = lib.repro_stream_collide_tiles(
-        *(build.ptr(x) for x in (f, node_types, neighbors, perms, slots, a_mat,
-                                 out)),
-        t1 - 1, q, n, build.DTYPE_CODES[f.dtype], MODES.index(mode), *args,
-        build.stream(dev))
+    # the launch function launches into, and sets attributes on, the
+    # current card: make it the tensor's, which may be another card
+    with torch.cuda.device(dev):
+        code = lib.repro_stream_collide_tiles(
+            *(build.ptr(x) for x in (f, node_types, neighbors, perms, slots,
+                                     a_mat, out)),
+            t1 - 1, q, n, build.DTYPE_CODES[f.dtype], MODES.index(mode), *args,
+            build.stream(dev))
     build.check(lib, code, "stream_collide_tiles")
     stream_collide_tiles.launches += 1
     return out

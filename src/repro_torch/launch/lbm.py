@@ -1,4 +1,4 @@
-"""LBM launcher: run the paper's solver on one device.
+"""LBM launcher: run the paper's solver, on one device or cut into z slabs.
 
     # the paper's fused path on the card, double precision
     PYTHONPATH=src python -m repro_torch.launch.lbm --case spheres --scale 4 \\
@@ -6,6 +6,12 @@
 
     # the plain PyTorch versions of the kernels on the CPU (small cases)
     PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu
+
+    # the slab-sharded engine: 4 slabs (on the CPU here; on the card the
+    # slabs default to one per visible card, and --slabs D places D slabs
+    # on the cards there are)
+    PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu \
+        --slabs 4
 
     # split-phase streaming on the gather backend, with the metric registry
     # (JSONL) and the host spans (Chrome trace) written out
@@ -16,7 +22,10 @@ The run warms up with ``--steps`` steps, resets to t = 0 and times
 ``--steps`` steps.  On the card the time comes from CUDA events around the
 launch loop; on the CPU from the host clock.  It prints MFLUPS, the
 bandwidth of the paper's Eqn-10 minimum traffic (2·Q·n_fluid·sizeof(dtype)
-bytes per step) and the kernel launches of the timed run.
+bytes per step) and the kernel launches of the timed run; sharded, also
+the slabs, the devices they sit on and the halo bytes per step.  A case
+whose z tile-layers cannot feed the slabs (one layer each, two with a
+periodic z) runs on one device, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -34,8 +43,10 @@ from repro_torch.core.boundary import BoundarySpec
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM
 from repro_torch.core.tiling import INLET, NODE_ORDERS, OUTLET, TILE_ORDERS
 from repro_torch.data import geometry as geo
+from repro_torch.dist.lbm import ShardedLBM
 from repro_torch.kernels.collide import collide_tiles
 from repro_torch.kernels.stream_collide import stream_collide_tiles
+from repro_torch.launch.mesh import make_host_mesh
 
 
 @dataclasses.dataclass
@@ -101,10 +112,12 @@ def reset_launch_counts() -> None:
     collide_tiles.launches = 0
 
 
-def timed_run(eng: SparseTiledLBM, steps: int) -> float:
+def timed_run(eng, steps: int) -> float:
     """Seconds for ``eng.run(steps)``: CUDA events on the card (after a
-    synchronise), the host clock on the CPU."""
-    if eng.device.type == "cuda":
+    synchronise), the host clock on the CPU and, between synchronises of
+    every card, across several cards."""
+    devices = set(getattr(eng, "devices", [eng.device]))
+    if len(devices) == 1 and eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -113,8 +126,13 @@ def timed_run(eng: SparseTiledLBM, steps: int) -> float:
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop) / 1e3
+    cards = [d for d in devices if d.type == "cuda"]
+    for d in cards:
+        torch.cuda.synchronize(d)
     t0 = time.perf_counter()
     eng.run(steps)
+    for d in cards:
+        torch.cuda.synchronize(d)
     return time.perf_counter() - t0
 
 
@@ -129,7 +147,23 @@ def run_local(args) -> dict:
         force=case.force, backend=args.backend, tile_order=args.order,
         node_order=args.node_order, use_kernel=args.backend == "gather",
         split_stream=args.split_stream)
-    eng = SparseTiledLBM(case.geometry, cfg, device=args.device)
+    mesh = make_host_mesh(args.slabs, args.device)
+    n_dev = len(mesh)
+    # a case is slab-decomposable only if every slab can own >= 1 z
+    # tile-layer (2 with a wrapped periodic-z halo) — channel2d, for one,
+    # is a single tile layer thick and must run single-device
+    tz = -(-case.geometry.shape[2] // cfg.a)
+    sharded = n_dev > 1 and tz >= n_dev * (2 if case.periodic[2] else 1)
+    if n_dev > 1 and not sharded:
+        print(f"case={args.case}: {tz} z tile-layer(s) cannot feed "
+              f"{n_dev} slabs; running single-device")
+    if sharded:
+        eng = ShardedLBM(case.geometry, cfg, devices=mesh)
+        tiles = sum(t.num_tiles for t in eng.plan.local_tilings)
+        eta_t = eng.plan.tile_utilisation
+    else:
+        eng = SparseTiledLBM(case.geometry, cfg, device=mesh[0])
+        tiles, eta_t = eng.tiling.num_tiles, eng.tiling.tile_utilisation
     eng.run(args.steps)            # warm-up: kernels built and loaded
     eng.reset()                    # back to t=0: the timed run IS the physics
     obs.get_tracer().reset()       # drop the warm-up's spans
@@ -151,8 +185,12 @@ def run_local(args) -> dict:
         "dtype": args.dtype, "device": str(eng.device),
         "device_name": (torch.cuda.get_device_name(eng.device)
                         if eng.device.type == "cuda" else "cpu"),
-        "fluid_nodes": eng.n_fluid_nodes, "tiles": eng.tiling.num_tiles,
-        "eta_t": eng.tiling.tile_utilisation, "steps": args.steps,
+        "fluid_nodes": eng.n_fluid_nodes, "tiles": tiles, "eta_t": eta_t,
+        "slabs": n_dev if sharded else 1,
+        "devices": len(set(mesh)) if sharded else 1,
+        "halo_bytes": eng.halo_bytes_per_step() if sharded else 0,
+        "halo_bytes_moved": eng.halo_bytes_moved_per_step() if sharded else 0,
+        "steps": args.steps,
         "seconds": dt, "mflups": eng.mflups(sec),
         "eqn10_gbs": min_bytes / sec / 1e9, "launches": launches,
         "mass": eng.total_mass(),
@@ -160,9 +198,13 @@ def run_local(args) -> dict:
     stream = "split" if args.split_stream else "mono"
     print(f"case={args.case} scale={args.scale} backend={args.backend} "
           f"stream={stream} dtype={args.dtype} device={out['device_name']} "
+          f"devices={out['devices']} slabs={out['slabs']} "
           f"fluid={out['fluid_nodes']:,} eta_t={out['eta_t']:.3f} "
           f"steps={args.steps} {dt:.4f}s -> {out['mflups']:.1f} MFLUPS, "
           f"Eqn-10 {out['eqn10_gbs']:.1f} GB/s, launches={launches}")
+    if sharded:
+        print(f"halo: {out['halo_bytes']:,} B per step (the reference's "
+              f"padded count), {out['halo_bytes_moved']:,} B moved")
     print(f"mass = {out['mass']:.6f} after {args.steps} steps")
     return out
 
@@ -188,6 +230,10 @@ def main(argv=None):
                     help="split-phase streaming: static interior permutation "
                          "+ compact frontier tables (gather backend only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--slabs", type=int, default=None,
+                    help="z slabs of the sharded engine, placed on the "
+                         "visible cards in contiguous blocks (default: one "
+                         "per visible card; 1 on the CPU)")
     ap.add_argument("--metrics-out", default=None, dest="metrics_out",
                     help="write the obs metric registry as JSONL here")
     ap.add_argument("--trace", default=None,

@@ -247,6 +247,157 @@ def test_sim_service_on_the_card_matches_the_cpu(dev):
         assert abs(a["probes"][0]["rho"] - b["probes"][0]["rho"]) <= 1e-12
 
 
+def _sharded_vs_single(dev, backend, devices, slabs=None):
+    """The slab-sharded engine (K1 or K2 once per slab per step) against
+    the single engine on the card: owned tiles within 1e-12 in float64
+    after 10 steps, with NEBB inlet and outlet."""
+    from repro_torch.dist.lbm import ShardedLBM
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    kw = dict(backend=backend, dtype="float64", boundaries=_Z_FLOW)
+    if backend == "gather":
+        kw.update(use_kernel=True, layout_scheme="paper")
+    cfg = LBMConfig(**kw)
+    single = SparseTiledLBM(g, cfg)
+    eng = ShardedLBM(g, cfg, slabs=slabs, devices=devices)
+    single.run(10)
+    k1.stream_collide_tiles.launches = k2.collide_tiles.launches = 0
+    eng.run(10)
+    counted = (k1.stream_collide_tiles if backend == "fused" else k2.collide_tiles)
+    assert counted.launches == eng.plan.n_dev * 10
+    want = single.backend.canonical(single.f)
+    for d, slab_dev, b, f in zip(eng.slab_ids, eng.devices, eng.backends, eng.f):
+        rows, g_rows = eng.plan.owned_rows(d, single.tiling)
+        g_rows = torch.as_tensor(g_rows, device=dev)
+        got = b.canonical(f)[:, torch.as_tensor(rows, device=slab_dev)].to(dev)
+        diff = (got - want[:, g_rows]).abs()
+        fluid = ~single._solid[g_rows][None].expand_as(diff)
+        assert float(diff[fluid].max()) <= 1e-12, d
+
+
+@pytest.mark.parametrize("slabs", [2, 4])
+@pytest.mark.parametrize("backend", ["fused", "gather"])
+def test_sharded_engine_on_the_card_matches_single_engine(dev, backend, slabs):
+    """Every slab on the one card."""
+    _sharded_vs_single(dev, backend, None, slabs)
+
+
+def _cards() -> int:
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    return cards
+
+
+@pytest.mark.parametrize("per_card", [1, 2])
+@pytest.mark.parametrize("backend", ["fused", "gather"])
+def test_sharded_engine_across_cards_matches_single_engine(dev, backend, per_card):
+    """Slabs on every visible card of one process (``make_host_mesh``), the
+    single engine on the first: each slab's kernels launch on its own card
+    whichever card is current, and the exchange crosses cards."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(per_card * _cards())
+    assert torch.cuda.current_device() == 0
+    _sharded_vs_single(dev, backend, mesh)
+
+
+def test_launcher_defaults_to_one_slab_per_card(dev, capsys):
+    import argparse
+
+    from repro_torch.launch import lbm as launcher
+
+    cards = _cards()
+    out = launcher.run_local(argparse.Namespace(
+        case="duct", scale=1, order="zmajor", node_order="canonical",
+        steps=3, tau=0.6, collision="lbgk", fluid="incompressible",
+        dtype="float64", backend="fused", split_stream=False, device="cuda",
+        slabs=None))
+    assert out["slabs"] == out["devices"] == cards
+    assert out["launches"]["stream_collide_tiles"] == 3 * cards
+    assert np.isfinite(out["mass"]) and "halo:" in capsys.readouterr().out
+
+
+def _ring_runs():
+    """(geometry, config) of the NCCL exchange test: fused on a periodic-z
+    ring (two messages each way between the two ranks of a ring of two),
+    and gather + K2 in the paper layout with open boundaries."""
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    g = random_spheres(box=32, porosity=0.6, diameter=8, seed=1)
+    return [(g, LBMConfig(backend="fused", dtype="float64",
+                          periodic=(True, True, True), u0=(0.01, 0.0, 0.02))),
+            (duct_wrap(g), LBMConfig(dtype="float64", boundaries=_Z_FLOW,
+                                     use_kernel=True, layout_scheme="paper"))]
+
+
+NCCL_PROG = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+rank, world, addr, tests, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                 sys.argv[4], sys.argv[5])
+sys.path.insert(0, tests)
+from test_torch_cuda import _ring_runs
+from repro_torch.dist.lbm import DistributedExchange, ShardedLBM
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=addr, rank=rank, world_size=world)
+for i, (g, cfg) in enumerate(_ring_runs()):
+    eng = ShardedLBM(g, cfg, slabs=world,
+                     devices=[torch.device("cuda", r) for r in range(world)],
+                     exchange=DistributedExchange())
+    assert eng.slab_ids == [rank] and eng.device == torch.device("cuda", rank)
+    eng.step(3)
+    eng.run(3)
+    np.save(f"{out}/f{i}_{rank}.npy", eng.f[0].cpu().numpy())
+    np.save(f"{out}/mass{i}_{rank}.npy", np.array(eng.total_mass()))
+dist.destroy_process_group()
+print("NCCL_OK")
+"""
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_nccl_exchange_equals_local(dev, tmp_path, world):
+    """One slab per rank on its own card, NCCL between them, gives the
+    in-process engine's slab states (all slabs on the first card) bit for
+    bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.dist.lbm import ShardedLBM
+
+    if _cards() < world:
+        pytest.skip(f"needs {world} cards")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        addr = f"tcp://localhost:{sock.getsockname()[1]}"
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(tests.parent / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROG, str(r), str(world),
+                               addr, str(tests), str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0 and "NCCL_OK" in so, se[-3000:]
+    for i, (g, cfg) in enumerate(_ring_runs()):
+        eng = ShardedLBM(g, cfg, slabs=world, devices=dev)
+        eng.step(3)
+        eng.run(3)
+        for d in range(world):
+            assert np.array_equal(np.load(tmp_path / f"f{i}_{d}.npy"),
+                                  eng.f[d].cpu().numpy()), (i, d)
+            assert float(np.load(tmp_path / f"mass{i}_{d}.npy")) == \
+                pytest.approx(eng.total_mass(), rel=1e-12)
+
+
 def _qkv(dev, dtype, b, s, t, h, kvh, hd, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, hd, generator=g, device=dev).to(dtype)

@@ -27,6 +27,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import repro_torch.launch.lbm
 import repro_torch.launch.sim_serve
+import repro_torch.dist.lbm, repro_torch.launch.mesh
 import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -67,6 +68,22 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     assert SimService(device="cpu").registry.device.type == "cpu"
+
+
+def test_sharded_engine_defaults_to_cuda(monkeypatch):
+    from repro_torch.dist.lbm import ShardedLBM
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = random_spheres(box=8, porosity=0.6, diameter=4, seed=0)
+    for backend in ("gather", "fused"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ShardedLBM(g, LBMConfig(backend=backend), slabs=2, devices=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh(2)
+    eng = ShardedLBM(g, LBMConfig(backend="fused"), slabs=1, devices="cpu")
+    assert eng.f[0].device.type == "cpu" and make_host_mesh(2, "cpu") == \
+        [torch.device("cpu")] * 2
 
 
 def test_sim_serve_launcher_fails_loudly_without_cuda():
