@@ -78,21 +78,39 @@ Phases (any failure exits non-zero and prints no result line):
 6. hold the flash-attention kernel K3 against its plain version on
    seeded unit-normal inputs: B in {1, 2} x (H, KVH) in {(4, 4), (4, 2),
    (24, 2)} x hd in {16, 64, 128, 256} x softcap in {None, 30} x causal
-   on/off x S = T in {64, 129, 200, 2048} x {float32, bfloat16};
-7. drive the LM serving path at full width: starcoder2-3b (30 layers,
-   d_model 3072, 24 query heads over 2 KV heads, hd 128), the port's own
-   weights from seed 0 (float32 parameters, bfloat16 compute, float32
-   cache), ``ServeEngine`` with 4 slots and max_len 4096, 8 requests of
-   2048 seeded random tokens, 32 new tokens each, greedy.  K3's counter is
-   zeroed just before the run and read just after: 8 prefills x 30 layers
-   = 240 launches, all of them inside prefill calls and none inside
-   decode calls (the engine reads the counter around each).  Prefill and
-   decode are timed apart with CUDA events;
-   a profiler pass splits one prefill and a few decode steps into device
-   time and K3's share.  At the main shapes (q/k/v of layer 0 of one of
-   the run's prompts) K3 is held against its plain version and timed
-   beside it and beside ``scaled_dot_product_attention`` (the library
-   yardstick; the port never calls it);
+   on/off x S = T in {64, 129, 200, 2048} x {float32, bfloat16}; then with
+   a window and with a prefix (gemma2's local layers, paligemma): bf16 at
+   hd 64/128/256 and float32 at hd 64 x S = T in {200, 2048, 4500} x
+   window in {1, 63, 64, 129, 1000, S} and prefix in {1, 127, 300, S + 1}
+   (and window 129 with prefix 300) x softcap in {None, 50}, stopping at
+   the first case beyond the bound;
+7. drive the LM serving path at full width, three models in turn, each
+   freed before the next: starcoder2-3b (30 layers, d_model 3072, 24
+   query heads over 2 KV heads, hd 128; 8 requests of 2048 tokens,
+   max_len 4096), gemma2-2b (26 layers in 13 local/global pairs, window
+   4096, attention softcap 50, hd 256, 8 query heads over 4 KV heads; 8
+   requests of 6144 tokens, past the window, max_len 8192) and
+   paligemma-3b (18 layers, hd 256, 8 query heads over 1 KV head, a
+   bidirectional prefix of 256 tokens; 8 requests of 512 tokens, max_len
+   1024): the port's own weights from seed 0 (float32 parameters,
+   bfloat16 compute, float32 cache), ``ServeEngine`` with 4 slots, 32 new
+   tokens each, greedy.  K3's counters are zeroed just before each run and
+   read just after: requests x layers launches, all of them inside
+   prefill calls and none inside decode calls (the engine reads the
+   counter around each), of which requests x 13 with gemma2's window and
+   requests x 18 with paligemma's prefix.  Prefill and decode are timed
+   apart with CUDA events; one request's prefill logits are held against
+   the same prefill with K3's plain version in its place (a sanity check:
+   5e-2 of the largest logit; a control logs the gap with the plain
+   version's window or prefix dropped); a profiler pass splits one prefill and a few decode
+   steps into device time and K3's share.  At each model's main shapes
+   (q/k/v of its first layer, both layers of gemma2's first pair, for one
+   of the run's prompts) K3 is held against its plain version and timed
+   beside it, beside its operations bound over the visible (query, key)
+   pairs and beside the library yardstick, which the port never calls and
+   which is held to the same bound: ``scaled_dot_product_attention`` with
+   the same mask, or, where gemma2's softcap applies, ``flex_attention``
+   with the softcap as its score_mod and the mask as its block mask;
 8. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -112,13 +130,16 @@ allowed, as for the ulp).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -142,7 +163,6 @@ from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
 from repro_torch.models.attention import _project_qkv  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
 from repro_torch.models.transformer import attn_cfg_for  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -169,9 +189,42 @@ ENS_BATCH = 3                # K1 over a B*T grid on the small geometries
 # which its owned tiles are held to the single engine's
 SHARD_SLABS = (2, 4)
 SHARD_PARITY_STEPS = 20
-# the serving run
-ARCH = "starcoder2-3b"
-SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 4096, 8, 2048, 32
+# K3 with a window and a prefix: (dtype, hd) of each kernel path that
+# serves them (Hopper at hd 64/128/256, the FMA kernel in float32), S = T,
+# and (window, prefix) cases: tile edges, a window of one key, 1000, one
+# "S" or more; prefixes short of and across 128-row blocks, "S" or more
+K3_MASK_KERNELS = ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                   (torch.bfloat16, 256), (torch.float32, 64))
+K3_MASK_LENGTHS = (200, 2048, 4500)
+K3_MASKS = ([(w, 0) for w in (1, 63, 64, 129, 1000, "S")]
+            + [(None, p) for p in (1, 127, 300, "S")] + [(129, 300)])
+
+
+class ServeRun(NamedTuple):
+    """One serving run at full width."""
+    arch: str
+    slots: int
+    max_len: int
+    requests: int
+    prompt: int
+    new: int
+
+
+# the serving runs: starcoder2 (global causal), gemma2 (prompts past its
+# 4096-key window: every local layer masks and its ring wraps), paligemma
+# (a 256-token bidirectional prefix)
+SERVE_RUNS = (ServeRun("starcoder2-3b", 4, 4096, 8, 2048, 32),
+              ServeRun("gemma2-2b", 4, 8192, 8, 6144, 32),
+              ServeRun("paligemma-3b", 4, 1024, 8, 512, 32))
+
+
+def model_mask(cfg) -> str:
+    """The mask that sets a model apart, and the K3 entry of the kernels
+    line it serves: gemma2's local layers' window, a vlm's prefix, else
+    the causal mask."""
+    if cfg.layer_pattern == "local_global":
+        return "window"
+    return "prefix" if cfg.family == "vlm" else "causal"
 
 
 def log(msg: str) -> None:
@@ -185,14 +238,23 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# cycles of a spin kernel that keeps the card busy while the host enqueues
+# the timed launches (~10 ms at the H100's clocks)
+LEAD_CYCLES = 20_000_000
+
+
 def time_ms(fn, reps: int, warm: int = 2, label: str = "") -> float:
     """Median milliseconds of ``reps`` calls of ``fn`` (after ``warm``),
-    each between two CUDA events on the current stream.  With ``label``,
-    logs the median, the 80th percentile and the sample count."""
+    each between two CUDA events on the current stream.  A spin kernel
+    runs first, so that the launches queue up behind it and the events
+    time the device's work, not the host's launch rate (for kernels
+    shorter than their wrapper's host time).  With ``label``, logs the
+    median, the 80th percentile and the sample count."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(LEAD_CYCLES)
     events[0].record()
     for ev in events[1:]:
         fn()
@@ -365,6 +427,46 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_attention(q, k, v, *, scale, softcap, window, prefix_len):
+    """(name, fn): the one PyTorch call that computes K3's causal function
+    on these (B, S, H, hd) inputs, fn returning K3's layout -- the library
+    yardstick, which the port never calls.  ``scaled_dot_product_attention``
+    where no softcap applies (``is_causal``, or the boolean mask of the
+    window and the prefix), else ``flex_attention`` compiled (at its
+    first call), with the softcap as its ``score_mod`` and the mask as its
+    block mask."""
+    s, t = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if softcap is None:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window is None and not prefix_len:
+            mask_kw = dict(is_causal=True)
+        else:
+            mask_kw = dict(attn_mask=k3.visible_mask(
+                torch.arange(s, device=q.device), torch.arange(t, device=q.device),
+                window=window, prefix_len=prefix_len))
+        return "SDPA", lambda: sdpa(qt, kt, vt, scale=scale, enable_gqa=True,
+                                    **mask_kw).transpose(1, 2)
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def mask_mod(b, h, qi, ki):        # K3's predicate (kernels.flash)
+        m = ki <= qi
+        if window is not None:
+            m = m & (ki > qi - window)
+        if prefix_len:
+            m = m | ((ki < prefix_len) & (qi < prefix_len))
+        return m
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    block_mask = create_block_mask(mask_mod, None, None, s, t, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return "flex_attention", lambda: flex(qt, kt, vt, score_mod=score_mod,
+                                          block_mask=block_mask, scale=scale,
+                                          enable_gqa=True).transpose(1, 2)
 
 
 def k3_error(q, k, v, got, want, kw: dict) -> tuple[float, float]:
@@ -1307,65 +1409,150 @@ class Smoke:
         log(f"[K3 vs plain] {count} cases within tolerance; worst |err| / "
             f"bound over elements, by dtype: {json.dumps(worst)}")
 
+    def check_k3_masks(self) -> None:
+        """K3 with a window and with a prefix (the masks of gemma2's local
+        layers and of paligemma) against its plain version, element by
+        element within ``error_bound``."""
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        worst, count = {}, 0
+        for dtype, hd in K3_MASK_KERNELS:
+            for s in K3_MASK_LENGTHS:
+                q, k, v = self._qkv(gen, dtype, 1, s, 4, 2, hd)
+                for window, prefix in K3_MASKS:
+                    window = s if window == "S" else window      # >= S: no window
+                    prefix = s + 1 if prefix == "S" else prefix  # >= S: all of it
+                    for cap in (None, 50.0):
+                        kw = dict(softcap=cap, window=window, prefix_len=prefix)
+                        got = k3.flash_attention(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        want = k3.flash_attention_ref(q, k, v, **kw)
+                        err, ratio = k3_error(q, k, v, got, want, kw)
+                        tag = f"{str(dtype).split('.')[1]} hd={hd}"
+                        worst[tag] = max(worst.get(tag, 0.0), ratio)
+                        count += 1
+                        if not ratio <= 1.0:
+                            raise AssertionError(
+                                f"K3 {tag} S=T={s} window={window} prefix={prefix} "
+                                f"softcap={cap}: max |err| {err:.3e}, {ratio:.3f} of "
+                                "the bound at the worst element")
+                del q, k, v, got, want
+        log(f"[K3 window/prefix vs plain] {count} cases within tolerance; worst "
+            f"|err| / bound over elements: {json.dumps(worst)}")
+
     # ------------------------------------------------------------ phase 7
-    def serve_main(self) -> None:
-        cfg = get_config(ARCH)
+    def serve_main(self, run: "ServeRun") -> None:
+        cfg = get_config(run.arch)
         t0 = time.perf_counter()
         model = CausalLM(cfg, device=self.dev, seed=0)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        eng = ServeEngine(model, SLOTS, MAX_LEN, cache_dtype=torch.float32)
+        eng = ServeEngine(model, run.slots, run.max_len, cache_dtype=torch.float32)
         rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32)
-                   for _ in range(REQUESTS)]
+        prompts = [rng.integers(0, cfg.vocab_size, run.prompt).astype(np.int32)
+                   for _ in range(run.requests)]
         # warm-up outside the counted run: cuBLAS handles, the bf16 weight
         # copies, the first K3 launch
         model.prefill(torch.as_tensor(prompts[0][:64], device=self.dev)[None],
                       128, torch.float32)
         for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=NEW))
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=run.new))
         torch.cuda.reset_peak_memory_stats()
         k3.flash_attention.launches = 0
+        k3.flash_attention.mask_launches = {"window": 0, "prefix": 0}
         t0 = time.perf_counter()
         finished = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = k3.flash_attention.launches
+        masks = dict(k3.flash_attention.mask_launches)
         phases = eng.k3_launches            # read around each phase's calls
         peak = torch.cuda.max_memory_allocated() / 2**30
-        if launches != REQUESTS * cfg.n_layers or phases != {
-                "prefill": launches, "decode": 0}:
+        # layers whose prefill K3 must run with a window (gemma2's local
+        # layers, when the prompt is longer than the window) or a prefix
+        mask = model_mask(cfg)
+        windowed = (cfg.n_layers // 2 if mask == "window"
+                    and run.prompt > cfg.local_window else 0)
+        prefixed = cfg.n_layers if mask == "prefix" else 0
+        want_masks = {"window": run.requests * windowed, "prefix": run.requests * prefixed}
+        if launches != run.requests * cfg.n_layers or phases != {
+                "prefill": launches, "decode": 0} or masks != want_masks:
             raise AssertionError(f"K3 launched {launches} times ({phases} by "
-                                 f"phase), expected {REQUESTS} prefills x "
-                                 f"{cfg.n_layers} layers, none in decode")
-        if len(finished) != REQUESTS or any(len(r.out_tokens) != NEW
-                                            for r in finished):
+                                 f"phase, {masks} with a mask), expected "
+                                 f"{run.requests} prefills x {cfg.n_layers} layers "
+                                 f"({want_masks} with a mask), none in decode")
+        if len(finished) != run.requests or any(len(r.out_tokens) != run.new
+                                                for r in finished):
             raise AssertionError("a request did not finish with "
-                                 f"{NEW} tokens: {[len(r.out_tokens) for r in finished]}")
+                                 f"{run.new} tokens: {[len(r.out_tokens) for r in finished]}")
         logits, _ = model.decode_step(
-            torch.as_tensor([[r.out_tokens[-1]] for r in finished[:SLOTS]],
-                            device=self.dev), eng.cache, PROMPT + NEW)
+            torch.as_tensor([[r.out_tokens[-1]] for r in finished[:run.slots]],
+                            device=self.dev), eng.cache, run.prompt + run.new)
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("non-finite logits after the serving run")
         pre_ms, dec_ms = eng.phase_ms["prefill"], eng.phase_ms["decode"]
-        per_request, per_step = pre_ms / REQUESTS, dec_ms / eng.decode_steps
-        log(f"[serve {ARCH}] {model.param_count():,} parameters ({cfg.param_dtype} "
+        per_request, per_step = pre_ms / run.requests, dec_ms / eng.decode_steps
+        mask_note = "".join(f", {n} with a {m}" for m, n in masks.items() if n)
+        log(f"[serve {run.arch}] {model.param_count():,} parameters ({cfg.param_dtype} "
             f"params, {cfg.dtype} compute, float32 cache), init {setup:.1f} s; "
-            f"{REQUESTS} requests x {PROMPT} prompt tokens, {NEW} new, {SLOTS} "
-            f"slots: prefill {eng.tokens['prefill']} tokens in {pre_ms:.2f} ms = "
-            f"{eng.tokens['prefill'] / pre_ms * 1e3:.1f} tok/s ({per_request:.3f} "
-            f"ms/request); decode {eng.tokens['decode']} tokens in "
-            f"{eng.decode_steps} steps, {dec_ms:.2f} ms = "
+            f"{run.requests} requests x {run.prompt} prompt tokens, {run.new} new, "
+            f"{run.slots} slots, max_len {run.max_len}: prefill {eng.tokens['prefill']} "
+            f"tokens in {pre_ms:.2f} ms = {eng.tokens['prefill'] / pre_ms * 1e3:.1f} "
+            f"tok/s ({per_request:.3f} ms/request); decode {eng.tokens['decode']} "
+            f"tokens in {eng.decode_steps} steps, {dec_ms:.2f} ms = "
             f"{eng.tokens['decode'] / dec_ms * 1e3:.1f} tok/s ({per_step:.4f} "
-            f"ms/step); run wall "
-            f"{wall:.2f} s; K3 launches {launches} (prefill {phases['prefill']}, "
-            f"decode {phases['decode']}); peak device memory {peak:.2f} GiB; first tokens "
-            f"{finished[0].out_tokens[:6]}")
-        self.profile_serve(model, eng, prompts[0], per_request, per_step)
-        self.k3_main_shapes(model, cfg, prompts[0], launches,
-                            {name: n / REQUESTS for name, n in phases.items()})
+            f"ms/step); run wall {wall:.2f} s; K3 launches {launches} (prefill "
+            f"{phases['prefill']}, decode {phases['decode']}{mask_note}); peak "
+            f"device memory {peak:.2f} GiB; first tokens {finished[0].out_tokens[:6]}")
+        self.prefill_vs_plain(model, run, prompts[0])
+        self.profile_serve(model, eng, run, prompts[0], per_request, per_step)
+        self.k3_main_shapes(model, cfg, run, prompts[0],
+                            {"causal": launches, **masks},
+                            {name: n / run.requests for name, n in phases.items()})
 
-    def profile_serve(self, model, eng, prompt, prefill_ms, step_ms) -> None:
+    def prefill_vs_plain(self, model, run, prompt) -> None:
+        """A sanity check of the whole prefill: one request's logits with
+        K3 against the same prefill with K3's plain version in its place
+        (every layer's attention, its window and prefix included), within
+        5e-2 of the largest logit.  The two differ by bf16 roundings (K3
+        rounds p for p.v), carried through the layers.  A control logs the
+        gap of the plain version with the model's window or prefix
+        dropped: what this check would see of a K3 that lost its mask
+        (gemma2's lost window shows far above the limit, paligemma's lost
+        prefix below it).  The element-wise ``error_bound`` checks at the
+        main shapes and in the mask matrix are what hold K3's masks."""
+        toks = torch.as_tensor(prompt, device=self.dev)[None]
+        plain = k3.flash_attention_ref
+
+        def unmasked(q, k, v, **kw):
+            return plain(q, k, v, **{**kw, "window": None, "prefix_len": 0})
+
+        def prefill_with(attend=None):
+            kernel = k3.flash_attention
+            if attend is not None:
+                k3.flash_attention = attend         # what attention calls
+            try:
+                return model.prefill(toks, run.max_len, torch.float32)[0]
+            finally:
+                k3.flash_attention = kernel
+
+        got, want = prefill_with(), prefill_with(plain)
+        top = want.abs().max()
+        rel = float((got - want).abs().max() / top)
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        mask = model_mask(model.cfg)
+        control = ""
+        if mask != "causal":
+            lost = float((prefill_with(unmasked) - want).abs().max() / top)
+            control = (f"; control, the plain version without the {mask}: "
+                       f"{lost:.3e} of max |logit|")
+        log(f"[serve {run.arch} vs plain] prefill logits of one request: max "
+            f"|K3 - plain| = {rel:.3e} of max |logit| ({float(top):.3f}); "
+            f"same greedy token: {same}{control}")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{run.arch}: prefill logits with K3 differ from "
+                                 f"the plain version's by {rel:.3e} of their largest")
+
+    def profile_serve(self, model, eng, run, prompt, prefill_ms, step_ms) -> None:
         """Device time of one prefill and 5 decode steps under
         ``torch.profiler``: device busy (union of kernel and memory-op
         intervals) and K3's part of it.  The idle share is against the
@@ -1375,12 +1562,12 @@ class Smoke:
         from torch.profiler import ProfilerActivity, profile
 
         toks = torch.as_tensor(prompt, device=self.dev)[None]
-        step_toks = torch.zeros(SLOTS, 1, dtype=torch.int64, device=self.dev)
+        step_toks = torch.zeros(run.slots, 1, dtype=torch.int64, device=self.dev)
         for phase, fn, reps, unprofiled in (
-                ("prefill", lambda: model.prefill(toks, MAX_LEN, torch.float32),
+                ("prefill", lambda: model.prefill(toks, run.max_len, torch.float32),
                  1, prefill_ms),
                 ("decode", lambda: model.decode_step(step_toks, eng.cache,
-                                                     PROMPT + NEW), 5, step_ms)):
+                                                     run.prompt + run.new), 5, step_ms)):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1395,8 +1582,8 @@ class Smoke:
             dev = sorted((e.time_range.start, e.time_range.end, e.name)
                          for e in prof.events() if e.device_type == DeviceType.CUDA)
             if not dev:
-                log(f"[profile serve {phase}] the profiler saw no device time: "
-                    "device busy share not measured")
+                log(f"[profile serve {run.arch} {phase}] the profiler saw no device "
+                    "time: device busy share not measured")
                 continue
             busy, end = 0.0, -1.0
             for a, b, _ in dev:
@@ -1407,58 +1594,86 @@ class Smoke:
             host_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU
                         and e.name.startswith("aten::") and e.cpu_parent is None]
             host_ms = sum(e.cpu_time_total for e in host_ops) / 1e3 / reps
-            log(f"[profile serve {phase}] per call: {len(dev) / reps:.0f} device "
-                f"ops, device busy {busy_ms:.4f} ms of {unprofiled:.4f} ms "
+            log(f"[profile serve {run.arch} {phase}] per call: {len(dev) / reps:.0f} "
+                f"device ops, device busy {busy_ms:.4f} ms of {unprofiled:.4f} ms "
                 f"unprofiled (idle share {1 - busy_ms / unprofiled:.3f}; "
                 f"{ms:.4f} ms under the profiler), K3 {k3_ms:.4f} ms = "
                 f"{k3_ms / unprofiled:.3f} of the call; {len(host_ops) / reps:.0f} "
                 f"top-level host torch ops taking {host_ms:.2f} ms of host time "
                 f"(profiled)")
 
-    def k3_main_shapes(self, model, cfg, prompt, launches, per_request: dict) -> None:
-        """K3 on layer 0's q/k/v for one of the run's prompts (the same
-        functions prefill runs), against its plain version and SDPA."""
-        acfg = attn_cfg_for(cfg, None)
+    def k3_main_shapes(self, model, cfg, run, prompt, launches: dict,
+                       per_request: dict) -> None:
+        """K3 on the first layer's q/k/v for one of the run's prompts (the
+        same functions prefill runs; both layers of gemma2's first pair),
+        against its plain version and, where one PyTorch call computes the
+        same function (no softcap), ``scaled_dot_product_attention``."""
         toks = torch.as_tensor(prompt, device=self.dev)[None]
-        with torch.no_grad():
-            block = model.layers[0]
-            h = rms_norm(model._embed(toks), block.norm_attn, cfg.norm_eps)
-            q, k, v = _project_qkv(block.attn.weights(model.dtype), h, acfg,
-                                   model._positions(toks))
-        kw = dict(scale=acfg.scale, softcap=acfg.softcap, causal=True)
-        got = k3.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want = k3.flash_attention_ref(q, k, v, **kw)
-        err, ratio = k3_error(q, k, v, got, want, kw)
-        if not ratio <= 1.0:
-            raise AssertionError(f"K3 vs plain at the main shapes: max |err| "
-                                 f"{err:.3e}, {ratio:.3f} of the bound")
-        del got, want
-        shape = f"S={q.shape[1]} H={q.shape[2]} KVH={k.shape[2]} hd={q.shape[3]} {q.dtype}"
-        ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50,
-                     label=f"K3 {shape}")
-        plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
-                           label="K3 plain")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=acfg.scale,
-                                      enable_gqa=True), 50, label="SDPA")
-        s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
-        flops = 4.0 * (s * (s + 1) / 2) * hd * hq       # the visible pairs
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-        bms, by = bound(nbytes, flops, q.dtype)
-        self.kernels["flash_attention"] = {
-            "name": "flash_attention", "route": "cuda",
-            "source": f"{SOURCE}/flash_attn.cu",
-            "replaces": "src/repro/kernels/flash.py:70",
-            "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
-            "launches_per_request": per_request}
-        log(f"[K3 {shape}] |err| {err:.3e} ({ratio:.3f} of the bound), {ms:.4f} "
-            f"ms/launch = {flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by "
-            f"{by}, {bms / ms:.4f} of it), plain {plain_ms:.3f} ms, SDPA "
-            f"{lib_ms:.4f} ms (K3 takes {ms / lib_ms:.2f}x SDPA's time)")
+        first = model.layers[0]
+        entry = model_mask(cfg)
+        if entry == "window":
+            layers = [("window", first["local"], attn_cfg_for(cfg, cfg.local_window)),
+                      ("causal", first["global"], attn_cfg_for(cfg, None))]
+        elif entry == "prefix":
+            layers = [("prefix", first, attn_cfg_for(cfg, None, cfg.prefix_tokens))]
+        else:
+            layers = [("causal", first, attn_cfg_for(cfg, None))]
+        for mask, block, acfg in layers:
+            with torch.no_grad():
+                x = model._embed(toks)
+                h = block._norm("norm_attn", x, cfg.post_norms)
+                q, k, v = _project_qkv(block.attn.weights(model.dtype), h, acfg,
+                                       model._positions(x))
+            kw = dict(scale=acfg.scale, softcap=acfg.softcap, causal=True,
+                      window=acfg.window, prefix_len=acfg.prefix_len)
+            got = k3.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = k3.flash_attention_ref(q, k, v, **kw)
+            err, ratio = k3_error(q, k, v, got, want, kw)
+            if not ratio <= 1.0:
+                raise AssertionError(f"K3 vs plain at {run.arch}'s main shapes ({mask}): "
+                                     f"max |err| {err:.3e}, {ratio:.3f} of the bound")
+            lib_name, lib_fn = library_attention(q, k, v, scale=acfg.scale,
+                                                 softcap=acfg.softcap, window=acfg.window,
+                                                 prefix_len=acfg.prefix_len)
+            lib_err, lib_ratio = k3_error(q, k, v, lib_fn(), want, kw)
+            if not lib_ratio <= 1.0:
+                raise AssertionError(f"{lib_name} vs K3's plain version at {run.arch}'s "
+                                     f"main shapes ({mask}): max |err| {lib_err:.3e}, "
+                                     f"{lib_ratio:.3f} of K3's bound")
+            del got, want
+            s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+            shape = (f"{run.arch} {mask} S={s} H={hq} KVH={k.shape[2]} hd={hd} "
+                     f"{q.dtype}" + (f" window={acfg.window}" if acfg.window else "")
+                     + (f" prefix={acfg.prefix_len}" if acfg.prefix_len else "")
+                     + (f" softcap={acfg.softcap}" if acfg.softcap else ""))
+            ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50,
+                         label=f"K3 {shape}")
+            plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
+                               label="K3 plain")
+            pos = torch.arange(s, device=self.dev)
+            visible = k3.visible_mask(pos, pos, window=acfg.window,
+                                      prefix_len=acfg.prefix_len)
+            lib_ms = time_ms(lib_fn, 50, label=lib_name)
+            flops = 4.0 * float(visible.sum()) * hd * hq        # the visible pairs
+            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            bms, by = bound(nbytes, flops, q.dtype)
+            if entry == mask:
+                key = "flash_attention" + ("" if mask == "causal" else f"_{mask}")
+                self.kernels[key] = {
+                    "name": key, "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
+                    "replaces": "src/repro/kernels/flash.py:70",
+                    "launches": launches[mask], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms, "model": run.arch,
+                    "launches_per_request": per_request}
+            log(f"[K3 {shape}] |err| {err:.3e} ({ratio:.3f} of the bound), {ms:.4f} "
+                f"ms/launch = {flops / ms / 1e9:.1f} TFLOP/s over the visible pairs "
+                f"(bound {bms:.4f} ms by {by}, {bms / ms:.4f} of it), plain "
+                f"{plain_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms (|err| {lib_err:.3e}, "
+                f"{lib_ratio:.3f} of K3's bound; K3 takes {ms / lib_ms:.2f}x "
+                f"{lib_name}'s time)")
+            del q, k, v, visible, lib_fn
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1469,6 +1684,11 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    # flex_attention's compiled kernels (the gemma2 library yardstick) go
+    # under the checkout's build/, as K1-K3's do
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke()
@@ -1484,7 +1704,14 @@ def main() -> int:
     smoke.sim_main()
     log(f"[sim] phase in {time.perf_counter() - t1:.1f} s")
     smoke.check_k3_matrix()
-    smoke.serve_main()
+    smoke.check_k3_masks()
+    for run in SERVE_RUNS:
+        t1 = time.perf_counter()
+        smoke.serve_main(run)
+        gc.collect()                     # free this model before the next one
+        torch.cuda.empty_cache()
+        log(f"[serve {run.arch}] phase in {time.perf_counter() - t1:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -22,10 +22,12 @@ imports it:
   layout.
 * :func:`lm_params_from_reference` takes the reference ``CausalLM``'s
   parameter pytree as nested dicts of numpy arrays (``stack.layers.*``
-  stacked over the L layers) and returns a port :class:`CausalLM` holding
-  them; :func:`lm_params_to_reference` does the reverse, byte for byte.
+  stacked over the L layers, or gemma2's ``stack.pairs.{local,global}.*``
+  over the L/2 pairs) and returns a port :class:`CausalLM` holding them;
+  :func:`lm_params_to_reference` does the reverse, byte for byte.
 * :func:`lm_cache_from_reference` / :func:`lm_cache_to_reference` carry a
-  KV cache (``{"layers": {"k", "v"}}``, (L, B, T, KVH, hd)) across.
+  KV cache across: ``{"layers": {"k", "v"}}``, (L, B, T, KVH, hd), or
+  gemma2's ``{"local": {"k", "v"}, "global": {"k", "v"}}``.
 """
 from __future__ import annotations
 
@@ -121,9 +123,12 @@ def ensemble_from_reference(f_np: np.ndarray, ensemble) -> None:
 # --------------------------------------------------------------------------
 def _reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
     """The reference pytree path of a port parameter name, and the layer
-    index into its stacked (L, ...) array (None outside the stack)."""
+    (or pair) index into its stacked (L, ...) array (None outside the
+    stack)."""
     if name.startswith("layers."):
         _, layer, *rest = name.split(".")
+        if rest[0] in ("local", "global"):       # a Pair's blocks
+            return ("stack", "pairs", *rest), int(layer)
         return ("stack", "layers", *rest), int(layer)
     return {"embed": ("embed", "table"), "final_norm": ("final_norm",),
             "lm_head": ("lm_head", "w")}[name], None
@@ -197,8 +202,8 @@ def lm_cache_from_reference(cache_np: dict, device=None) -> dict:
     """A reference KV cache (numpy) as the port's, on ``device`` (None: the
     card)."""
     dev = resolve_device(device)
-    return {"layers": {k: _tensor(cache_np["layers"][k]).to(dev)
-                       for k in ("k", "v")}}
+    return {group: {k: _tensor(kv[k]).to(dev) for k in ("k", "v")}
+            for group, kv in cache_np.items()}
 
 
 def lm_cache_to_reference(cache: dict) -> dict:
@@ -208,4 +213,5 @@ def lm_cache_to_reference(cache: dict) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return {"layers": {k: arr(cache["layers"][k]) for k in ("k", "v")}}
+    return {group: {k: arr(kv[k]) for k in ("k", "v")}
+            for group, kv in cache.items()}

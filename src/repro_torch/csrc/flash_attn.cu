@@ -7,7 +7,13 @@
 // c*tanh(x/c) follows, the causal mask keeps key t for query s when t <= s
 // (both counted from 0), the softmax runs online over key tiles with a
 // running max m, sum l and a float32 accumulator, rows with l == 0 divide by
-// 1, and the output is cast to the input type.
+// 1, and the output is cast to the input type.  The causal mask takes the
+// two refinements of the reference's model path (_mask_block,
+// src/repro/models/attention.py): a local window W keeps only keys
+// t > s - W (gemma2), and a bidirectional prefix P lets every query s < P
+// see every key t < P (paligemma); see causal_visible.  Each block loops
+// over the key tiles that some row of it can see (key_range), so a
+// windowed block starts at its window's first tile.
 //
 // What differs from the TPU version:
 // - GQA: query head h reads K/V of KV head h / (H / KVH) in place; the
@@ -16,8 +22,9 @@
 //   where the Pallas version asserts S % bq == 0 and T % bk == 0.
 // - Blocks run in parallel in no order, so each block owns one (batch,
 //   query head, query block) and loops over key tiles itself; the causal
-//   loop stops at the block's last row, and the heaviest causal blocks are
-//   scheduled first.
+//   loop stops at the block's last row (or the prefix's end), starts at the
+//   window of its first row, and the heaviest causal blocks are scheduled
+//   first.
 //
 // Bound on the H100: operations.  At prefill shapes (S = 2048, hd = 128)
 // the two products do ~S/2 multiply-adds per byte of q, k, v and out, far
@@ -88,6 +95,30 @@ struct Smem {
       sizeof(float) * (BQ * QLD + BQ * PLD) + sizeof(T) * (BK * KLD + BK * HD);
 };
 
+// Key t visible to query s (both counted from 0) under the causal mask with
+// a window (0: none) and a bidirectional prefix (0: none):
+//   (t <= s and (window == 0 or t > s - window)) or (t < prefix and s < prefix)
+__device__ __forceinline__ bool causal_visible(int t, int s, int window, int prefix) {
+  return (t <= s && (window == 0 || t > s - window)) || (t < prefix && s < prefix);
+}
+
+// The keys [begin, end) that some query row in [q0, q1) sees under that
+// mask, with Tk keys (q0 < q1, Tk >= 1).  begin < end: where no row sees a
+// key (T shorter than the window's start), the range is the last key alone,
+// which the mask hides from every row.
+struct KeyRange {
+  int begin, end;
+};
+__device__ __forceinline__ KeyRange key_range(int q0, int q1, int Tk, int window, int prefix) {
+  int end = min(Tk, q1);
+  int begin = window ? max(0, q0 - window + 1) : 0;
+  if (q0 < prefix) {            // a row of the prefix sees keys 0 .. prefix - 1
+    end = max(end, min(prefix, Tk));
+    begin = 0;
+  }
+  return {min(begin, end - 1), end};
+}
+
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -106,7 +137,7 @@ template <typename T, int HD, bool CAUSAL, bool SOFTCAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-                 int H, int KVH, float scale, float cap) {
+                 int H, int KVH, float scale, float cap, int window, int prefix) {
   using L = Smem<T, HD>;
   constexpr int OC = HD >= 16 ? HD / 16 : 1;   // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -145,8 +176,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // keys any row of this block can see
-  const int k_end = CAUSAL ? min(Tk, min(q0 + BQ, S)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const KeyRange kr = CAUSAL ? key_range(q0, min(q0 + BQ, S), Tk, window, prefix)
+                             : KeyRange{0, Tk};
+  for (int k0 = kr.begin / BK * BK; k0 < kr.end; k0 += BK) {
     __syncthreads();   // every warp is done with the previous tile
     for (int i = tid; i < BK * HD; i += NT) {
       const int r = i / HD, d = i % HD, t = k0 + r;
@@ -184,7 +216,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int k_pos = k0 + cg + 16 * c;
         float x = logit[i][c];
         if constexpr (SOFTCAP) x = cap * tanhf(x / cap);
-        const bool visible = k_pos < Tk && (!CAUSAL || k_pos <= q_pos);
+        const bool visible =
+            k_pos < Tk && (!CAUSAL || causal_visible(k_pos, q_pos, window, prefix));
         logit[i][c] = visible ? x : -CUDART_INF_F;
         m_tile = fmaxf(m_tile, logit[i][c]);
       }
@@ -306,7 +339,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int S, int Tk, int H, int KVH,
-                     float scale, float cap) {
+                     float scale, float cap, int window, int prefix) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -336,8 +369,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
 
-  const int k_end = CAUSAL ? min(Tk, min(q0 + BQ, S)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const KeyRange kr = CAUSAL ? key_range(q0, min(q0 + BQ, S), Tk, window, prefix)
+                             : KeyRange{0, Tk};
+  for (int k0 = kr.begin / BK * BK; k0 < kr.end; k0 += BK) {
     __syncthreads();   // every warp is done with the previous tile
     load_tile<HD, BK>(Ks, k_base, kv_stride, k0, Tk);
     load_tile<HD, BK>(Vs, v_base, kv_stride, k0, Tk);
@@ -369,7 +403,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int k_pos = k0 + n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * scale;
         if constexpr (SOFTCAP) x = cap * tanhf(x / cap);
-        const bool visible = k_pos < Tk && (!CAUSAL || k_pos <= q_pos);
+        const bool visible =
+            k_pos < Tk && (!CAUSAL || causal_visible(k_pos, q_pos, window, prefix));
         s[n][e] = visible ? x : -CUDART_INF_F;
         m_tile[e >> 1] = fmaxf(m_tile[e >> 1], s[n][e]);
       }
@@ -462,10 +497,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // (named barriers 1 and 2), so one's softmax runs while the tensor cores
 // work on the other's products.  Row max and row sum are reduced over the
 // 4 threads that hold a row; l sums the float32 probabilities and p is
-// rounded to bfloat16 for P V, as the reference's dense path does.  Tiles
-// below the diagonal skip the mask; the loop stops at the block's
-// diagonal.  Registers: 168 per thread at launch; ptxas fits the
-// consumers in 240 with no spill at hd 64, 128 and 256.
+// rounded to bfloat16 for P V, as the reference's dense path does.  The
+// block runs the key tiles j0 .. n_tiles - 1 that some row of it sees
+// (key_range: from its first row's window, to its last row's diagonal or
+// the prefix's end); the ring's stages and parities count from j0, in the
+// producer and both consumers alike.  A tile whose every key every row of
+// the warpgroup sees skips the mask (tile_unmasked); the others, at the
+// diagonal, at the window's lower edge, at the prefix's corner and the
+// ragged last tile, take it, and a row that sees nothing of a tile keeps
+// its m, l and O (the m == -inf guard of softmax_tile).  Registers: 168
+// per thread at launch; ptxas fits the consumers in 240 with no spill at
+// hd 64, 128 and 256.
 // --------------------------------------------------------------------------
 namespace hopper {
 
@@ -698,18 +740,40 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
     wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
 }
 
+// Whether every key of the tile [k0, k0 + BK) is visible to every row of
+// [r0, r0 + 64) (rows past S included, which only masks more than needed):
+// the tile lies in T and below the diagonal and above the window of every
+// row, or in the prefix's square.
+template <int BK, bool CAUSAL>
+__device__ __forceinline__ bool tile_unmasked(int k0, int r0, int Tk, int window, int prefix) {
+  if (k0 + BK > Tk) return false;
+  if (!CAUSAL) return true;
+  const int r1 = r0 + 63;
+  return (k0 + BK - 1 <= r0 && (window == 0 || k0 > r1 - window)) ||
+         (k0 + BK <= prefix && r1 < prefix);
+}
+
 // Online softmax of one tile in place: the raw sums s become
 // p = exp2(x - m), x the scaled (and capped) logit in log2 units, masked to
-// -inf where the key is past T or (causal) past the row; m and l (this
-// thread's part of the row sum) move on, alpha is the rescale of earlier
-// terms.  Row r of the thread is row[r]; column of s[i] is
-// k0 + 8 (i / 4) + 2t + i % 2.
+// -inf where the key is past T or (causal) hidden from the row
+// (causal_visible, as bounds per row: three compares per logit of a masked
+// tile, one more than the causal mask alone); m and l (this thread's part of
+// the row sum) move on, alpha is the rescale of earlier terms.  Row r of the thread
+// is row[r]; column of s[i] is k0 + 8 (i / 4) + 2t + i % 2.
 template <int NS, bool MASK, bool CAUSAL, bool SOFTCAP>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0, const int (&row)[2],
-                                             int t, int Tk, float scale_log2, float scale,
-                                             float cap) {
+                                             int t, int Tk, int window, int prefix,
+                                             float scale_log2, float scale, float cap) {
   float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  // row r sees the keys in (lo, hi] and those below pe
+  int hi[2], lo[2], pe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = CAUSAL ? min(row[r], Tk - 1) : Tk - 1;
+    lo[r] = CAUSAL && window ? row[r] - window : -1;
+    pe[r] = CAUSAL && row[r] < prefix ? min(prefix, Tk) : 0;
+  }
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
@@ -720,7 +784,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
       x = s[i] * scale_log2;
     if constexpr (MASK) {
       const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-      if (!(k_pos < Tk && (!CAUSAL || k_pos <= row[r]))) x = -CUDART_INF_F;
+      if (!((k_pos <= hi[r] && k_pos > lo[r]) || k_pos < pe[r])) x = -CUDART_INF_F;
     }
     s[i] = x;
     mt[r] = fmaxf(mt[r], x);
@@ -749,14 +813,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 template <int NS, bool CAUSAL, bool SOFTCAP>
 __device__ __forceinline__ void softmax_any(bool mask, float (&s)[NS], float (&m)[2],
                                             float (&l)[2], float (&alpha)[2], int k0,
-                                            const int (&row)[2], int t, int Tk,
-                                            float scale_log2, float scale, float cap) {
+                                            const int (&row)[2], int t, int Tk, int window,
+                                            int prefix, float scale_log2, float scale,
+                                            float cap) {
   if (mask)
-    softmax_tile<NS, true, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, scale_log2,
-                                            scale, cap);
+    softmax_tile<NS, true, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, window, prefix,
+                                            scale_log2, scale, cap);
   else
-    softmax_tile<NS, false, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, scale_log2,
-                                             scale, cap);
+    softmax_tile<NS, false, CAUSAL, SOFTCAP>(s, m, l, alpha, k0, row, t, Tk, window, prefix,
+                                             scale_log2, scale, cap);
 }
 
 // p in bfloat16 as the A fragments of P V: the accumulator entries
@@ -778,7 +843,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out, int S, int Tk, int H, int KVH,
-                       int B, float scale, float cap) {
+                       int B, float scale, float cap, int window, int prefix) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, NCH = HD / CW;
   extern __shared__ unsigned char smem_raw[];
@@ -798,8 +863,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = bh % H, b = bh / H;
   const int kvh = h / (H / KVH);
   const int q0 = qb * BQ;
-  const int k_end = CAUSAL ? min(Tk, min(q0 + BQ, S)) : Tk;   // keys any row sees
-  const int n_tiles = (k_end + BK - 1) / BK;
+  // the key tiles j0 .. n_tiles - 1 hold every key some row sees; the ring
+  // runs n = n_tiles - j0 >= 1 of them, stage i % STAGES for tile j0 + i
+  const KeyRange kr = CAUSAL ? key_range(q0, min(q0 + BQ, S), Tk, window, prefix)
+                             : KeyRange{0, Tk};
+  const int j0 = kr.begin / BK;
+  const int n = (kr.end + BK - 1) / BK - j0;
   // the warpgroup's role, through a shuffle so the compiler sees it is
   // uniform across each warp (wgmma needs converged warps)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -822,28 +891,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int c = 0; c < NCH; ++c) tma_load(&tm_q, q_full, q_s + c * BQ * 128, c * CW, h, q0, b);
-      auto load_k = [&](int j) {
-        const int st = j % STAGES;
-        mbar_wait(k_empty(st), ((j / STAGES) & 1) ^ 1);   // passes on the first round
+      // ring position i holds key tile j0 + i
+      auto load_k = [&](int i) {
+        const int st = i % STAGES;
+        mbar_wait(k_empty(st), ((i / STAGES) & 1) ^ 1);   // passes on the first round
         mbar_expect_tx(k_full(st), C::KV_BYTES);
         for (int c = 0; c < NCH; ++c)
           tma_load(&tm_k, k_full(st), k_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
-                   j * BK, b);
+                   (j0 + i) * BK, b);
       };
-      auto load_v = [&](int j) {
-        const int st = j % STAGES;
-        mbar_wait(v_empty(st), ((j / STAGES) & 1) ^ 1);
+      auto load_v = [&](int i) {
+        const int st = i % STAGES;
+        mbar_wait(v_empty(st), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(v_full(st), C::KV_BYTES);
         for (int c = 0; c < NCH; ++c)
           tma_load(&tm_v, v_full(st), v_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
-                   j * BK, b);
+                   (j0 + i) * BK, b);
       };
-      // K runs one tile ahead of V: S_{j+1} needs K_{j+1} before P_j V_j
-      // needs V_j, and a V slot frees only after the P V product that read it
-      if (n_tiles > 0) load_k(0);
-      for (int j = 0; j < n_tiles; ++j) {
-        if (j + 1 < n_tiles) load_k(j + 1);
-        load_v(j);
+      // K runs one tile ahead of V: S_{i+1} needs K_{i+1} before P_i V_i
+      // needs V_i, and a V slot frees only after the P V product that read it
+      load_k(0);
+      for (int i = 0; i < n; ++i) {
+        if (i + 1 < n) load_k(i + 1);
+        load_v(i);
       }
     }
   } else {
@@ -858,8 +928,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // warpgroup's rows sees leaves its m, l and O as they were), so their
     // turns at the tensor cores alternate one for one
     if (wg == 2) named_arrive(1);             // warpgroup 1 issues first
-    // tiles from here on need the mask: the ragged key tile, the diagonal
-    const int first_masked = CAUSAL ? min(Tk / BK, (row0 + 1) / BK) : Tk / BK;
+    // whether ring position i's tile needs the mask for this warpgroup
+    auto masked = [&](int i) {
+      return !tile_unmasked<BK, CAUSAL>((j0 + i) * BK, row0, Tk, window, prefix);
+    };
     const float scale_log2 = scale * LOG2E;
     const uint32_t q_rows = q_s + (wg - 1) * 64 * 128;
     auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
@@ -870,7 +942,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
-    // n_tiles >= 1: S >= 1 and T >= 1 (T = 0 never launches)
+    // n >= 1: S >= 1 and T >= 1 (T = 0 never launches)
     mbar_wait(q_full, 0);
     {
       mbar_wait(k_full(0), 0);
@@ -882,14 +954,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(s);
       release(k_empty(0));
-      softmax_any<BK / 2, CAUSAL, SOFTCAP>(first_masked <= 0, s, m, l, alpha, 0, row, t, Tk,
-                                           scale_log2, scale, cap);
+      softmax_any<BK / 2, CAUSAL, SOFTCAP>(masked(0), s, m, l, alpha, j0 * BK, row, t, Tk,
+                                           window, prefix, scale_log2, scale, cap);
       to_bf16(s, p);
     }
-    for (int j = 1; j < n_tiles; ++j) {
-      const int st = j % STAGES, prev = (j - 1) % STAGES;
-      mbar_wait(k_full(st), (j / STAGES) & 1);
-      mbar_wait(v_full(prev), ((j - 1) / STAGES) & 1);
+    for (int i = 1; i < n; ++i) {
+      const int st = i % STAGES, prev = (i - 1) % STAGES;
+      mbar_wait(k_full(st), (i / STAGES) & 1);
+      mbar_wait(v_full(prev), ((i - 1) / STAGES) & 1);
       named_sync(wg);
       wgmma_fence();                      // p and o were written by ordinary code
       issue_qk<HD>(s, q_rows, k_s + st * C::KV_BYTES);
@@ -900,8 +972,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<1>();                    // S_j is done; P_{j-1} V_{j-1} may still run
       fence_regs(s);
       release(k_empty(st));
-      softmax_any<BK / 2, CAUSAL, SOFTCAP>(j >= first_masked, s, m, l, alpha, j * BK, row, t,
-                                           Tk, scale_log2, scale, cap);
+      softmax_any<BK / 2, CAUSAL, SOFTCAP>(masked(i), s, m, l, alpha, (j0 + i) * BK, row, t,
+                                           Tk, window, prefix, scale_log2, scale, cap);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -911,8 +983,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       to_bf16(s, p);
     }
     {
-      const int j = n_tiles - 1, st = j % STAGES;
-      mbar_wait(v_full(st), (j / STAGES) & 1);
+      const int i = n - 1, st = i % STAGES;
+      mbar_wait(v_full(st), (i / STAGES) & 1);
       named_sync(wg);
       wgmma_fence();
       issue_pv<HD>(o, p, v_s + st * C::KV_BYTES);
@@ -991,7 +1063,8 @@ inline bool encode(CUtensorMap* map, const void* base, int hd, int heads, int ro
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
-           int KVH, float scale, bool causal, bool softcap, float cap, cudaStream_t stream) {
+           int KVH, float scale, bool causal, bool softcap, float cap, int window, int prefix,
+           cudaStream_t stream) {
   if (Tk == 0)   // no keys: every row has l == 0 and gives zeros
     return static_cast<int>(
         cudaMemsetAsync(out, 0, sizeof(__nv_bfloat16) * B * S * H * HD, stream));
@@ -1009,7 +1082,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
       const int blocks = (S + BQ - 1) / BQ * H * B;
       kernel<<<blocks, NT, Cfg<HD>::bytes, stream>>>(tq, tk, tv,
                                                      static_cast<__nv_bfloat16*>(out), S, Tk,
-                                                     H, KVH, B, scale, cap);
+                                                     H, KVH, B, scale, cap, window, prefix);
       return static_cast<int>(cudaGetLastError());
     });
   });
@@ -1020,14 +1093,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 template <typename T, typename Kernel>
 int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
         void* out, int B, int S, int Tk, int H, int KVH, float scale, float cap,
-        cudaStream_t stream) {
+        int window, int prefix, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                      static_cast<const T*>(v), static_cast<T*>(out), S,
-                                     Tk, H, KVH, scale, cap);
+                                     Tk, H, KVH, scale, cap, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1037,10 +1110,10 @@ int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Tk, int H, int KVH, float scale, bool causal, bool softcap,
-           float cap, cudaStream_t stream) {
+           float cap, int window, int prefix, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 64)
     return hopper::launch<HD>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                              stream);
+                              window, prefix, stream);
   else
     return with_flag(causal, [&](auto CAUSAL) {
       return with_flag(softcap, [&](auto SOFTCAP) {
@@ -1048,10 +1121,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
         constexpr bool kSoftcap = decltype(SOFTCAP)::value;
         if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 16)
           return run<T>(tc::flash_fwd_mma_kernel<HD, kCausal, kSoftcap>, tc::Cfg<HD>::bytes,
-                        q, k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
+                        q, k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, stream);
         else
           return run<T>(flash_fwd_kernel<T, HD, kCausal, kSoftcap>, Smem<T, HD>::bytes, q,
-                        k, v, out, B, S, Tk, H, KVH, scale, cap, stream);
+                        k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, stream);
       });
     });
 }
@@ -1059,14 +1132,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int B,
              int S, int Tk, int H, int KVH, float scale, bool causal, bool softcap,
-             float cap, cudaStream_t stream) {
+             float cap, int window, int prefix, cudaStream_t stream) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
-    case 16: return launch<T, 16>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap, stream);
+    case 8:
+      return launch<T, 8>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                          window, prefix, stream);
+    case 16:
+      return launch<T, 16>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                           window, prefix, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                           window, prefix, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                           window, prefix, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                            window, prefix, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                            window, prefix, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1076,21 +1161,27 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int
 
 // q, out: (B, S, H, hd); k, v: (B, T, KVH, hd); contiguous, one dtype
 // (0 = float32, 2 = bfloat16); H a multiple of KVH; hd in {8, 16, 32, 64,
-// 128, 256}.  softcap <= 0 means none.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// 128, 256}.  softcap <= 0 means none.  With causal != 0, window > 0 keeps
+// only keys t > s - window and prefix > 0 opens the prefix's square
+// (causal_visible); window 0 and prefix 0 mean none, and both are ignored
+// when causal is 0.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int B, int S, int T, int H, int KVH,
                                      int hd, int dtype, double scale, double softcap,
-                                     int causal, void* stream) {
+                                     int causal, int window, int prefix, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KVH <= 0 || H % KVH != 0 || T < 0 || window < 0 || prefix < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (causal == 0) window = prefix = 0;
   auto s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale), cap = static_cast<float>(softcap);
   if (dtype == 0)
     return repro::flash::dispatch<float>(hd, q, k, v, out, B, S, T, H, KVH, sc,
-                                         causal != 0, softcap > 0, cap, s);
+                                         causal != 0, softcap > 0, cap, window, prefix, s);
   if (dtype == 2)
     return repro::flash::dispatch<__nv_bfloat16>(hd, q, k, v, out, B, S, T, H, KVH, sc,
-                                                 causal != 0, softcap > 0, cap, s);
+                                                 causal != 0, softcap > 0, cap, window,
+                                                 prefix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

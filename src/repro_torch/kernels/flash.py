@@ -1,13 +1,21 @@
 """Flash-attention forward kernel (K3) and its plain PyTorch version.
 
-``flash_attention(q, k, v, scale=, softcap=, causal=)`` is the reference's
-``repro.kernels.flash.flash_attention`` (the Pallas kernel at
-``src/repro/kernels/flash.py:70``): q (B, S, H, hd), k/v (B, T, KVH, hd)
-with H = KVH * G, query head h reading KV head h // G.  It returns
-(B, S, H, hd) in q's dtype.  q is scaled in float32, logits and
+``flash_attention(q, k, v, scale=, softcap=, causal=, window=,
+prefix_len=)`` is the reference's ``repro.kernels.flash.flash_attention``
+(the Pallas kernel at ``src/repro/kernels/flash.py:70``): q (B, S, H, hd),
+k/v (B, T, KVH, hd) with H = KVH * G, query head h reading KV head h // G.
+It returns (B, S, H, hd) in q's dtype.  q is scaled in float32, logits and
 probabilities are float32, an optional ``softcap * tanh(x / softcap)``
 caps the logits, and the causal mask keeps key t for query s when t <= s.
-Unlike the Pallas kernel it takes any S and T.
+Unlike the Pallas kernel it takes any S and T, and the two masks of the
+reference's model path (``_mask_block``, ``src/repro/models/attention.py``):
+with a ``window`` (gemma2's local layers) the causal mask keeps only keys
+t > s - window, and with a ``prefix_len`` P (paligemma) every query s < P
+also sees every key t < P.  In all, with causal on, key t is visible to
+query s when
+
+    (t <= s and (window is None or t > s - window))
+    or (t < prefix_len and s < prefix_len).
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
 (bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
@@ -33,12 +41,39 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def visible_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                 window: int | None = None, prefix_len: int = 0) -> torch.Tensor:
+    """(S,) x (T,) positions -> (S, T) bool: key visible to query under the
+    causal mask with ``window`` and ``prefix_len`` (the predicate of the
+    module docstring; K3 applies it at positions 0..S-1 and 0..T-1)."""
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    m = kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    if prefix_len:
+        m |= (kp < prefix_len) & (qp < prefix_len)
+    return m
+
+
+def _check_mask_args(causal: bool, window: int | None, prefix_len: int) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    if not causal and (window is not None or prefix_len):
+        raise ValueError("window and prefix_len refine the causal mask: "
+                         "they need causal=True")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float | None = None, softcap: float | None = None,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, window: int | None = None,
+                        prefix_len: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention` with K3's numerics:
     q scaled in float32, float32 logits and probabilities (dense softmax),
-    the output cast to q's dtype at the end."""
+    the output cast to q's dtype at the end, zeros for a row that sees no
+    key."""
+    _check_mask_args(causal, window, prefix_len)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if scale is None:
@@ -48,10 +83,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     if causal:
-        visible = (torch.arange(t, device=q.device)[None, :]
-                   <= torch.arange(s, device=q.device)[:, None])
+        visible = visible_mask(torch.arange(s, device=q.device),
+                               torch.arange(t, device=q.device), window=window,
+                               prefix_len=prefix_len)
         logits = logits.masked_fill(~visible, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    if causal and window is not None:
+        # a row that sees no key (a window past T < S) has l == 0 in K3 and
+        # gives zeros
+        probs = probs * visible.any(-1)[:, None]
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(b, s, h, hd).to(q.dtype)
 
@@ -86,19 +126,22 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     lib.repro_flash_attention.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
-        + [ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, softcap: float | None = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """GQA attention forward; K3 on the card, the plain version on the
     CPU."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
-                                   causal=causal)
+                                   causal=causal, window=window,
+                                   prefix_len=prefix_len)
+    _check_mask_args(causal, window, prefix_len)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, S, H, hd) and k, v (B, T, KVH, hd)")
     b, s, h, hd = q.shape
@@ -118,6 +161,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    # a window as long as the queries hides no key: 0 tells the kernel so,
+    # and keeps s - window inside an int
+    win = 0 if window is None or window >= s else int(window)
+    prefix = min(int(prefix_len), max(s, t))
     out = torch.empty_like(q)
     lib = _lib()
     # the launch function launches into, and sets attributes on, the
@@ -126,10 +173,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.repro_flash_attention(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, s, t,
             h, kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
-            float(softcap or 0.0), int(causal), build.stream(q.device))
+            float(softcap or 0.0), int(causal), win, prefix,
+            build.stream(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
+    if win:
+        flash_attention.mask_launches["window"] += 1
+    if prefix:
+        flash_attention.mask_launches["prefix"] += 1
     return out
 
 
+# launches, and those of them that applied a window or a prefix
 flash_attention.launches = 0
+flash_attention.mask_launches = {"window": 0, "prefix": 0}

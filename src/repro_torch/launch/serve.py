@@ -3,14 +3,18 @@
     # full width on the card (the port's own weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --requests 8 --slots 4 --prompt-len 2048 --max-new 32 --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+        --requests 8 --slots 4 --prompt-len 6144 --max-new 32 --max-len 8192
 
     # the smoke config on the CPU (plain kernel versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-After a warm-up prefill and decode step at the timed shapes (kernel
-build, weight copies; its host time is printed apart), prefill and decode
-are timed apart by the engine: CUDA events on the card, the host clock on
-the CPU.  The run prints both rates in tokens/s, the device they were
+Prompts are tokens only, as in the reference's launcher: paligemma's
+first 256 positions (its ``prefix_tokens``) then attend bidirectionally
+over prompt tokens, with no image embeddings.  After a warm-up prefill
+and decode step at the timed shapes (kernel build, weight copies; its
+host time is printed apart), prefill and decode are timed apart by the
+engine: CUDA events on the card, the host clock on the CPU.  The run prints both rates in tokens/s, the device they were
 taken on, and the launches of kernel K3 in each phase (one per layer per
 prefilled request, none in decode).
 """

@@ -1,17 +1,20 @@
-"""Grouped-query attention with RoPE and a KV cache, for the dense global
-family (the reference's ``repro.models.attention``).
+"""Grouped-query attention with RoPE, softcap, local windows, prefix-LM
+masks and a KV cache (the reference's ``repro.models.attention``).
 
 * GQA with any kv-head count (starcoder2 kv=2 ... qwen kv=40=MHA), QKV
-  bias (qwen1.5), partial rotary (chatglm3: fraction 0.5), logit softcap.
+  bias (qwen1.5), partial rotary (chatglm3: fraction 0.5), logit softcap
+  and local windows (gemma2), prefix-LM masks (paligemma: bidirectional
+  over the prefix).
 * Full self-attention and prefill run on kernel K3
-  (:func:`repro_torch.kernels.flash.flash_attention`): global causal
-  attention with positions 0..S-1, which is what the reference's
-  ``_attend`` computes for them.  Local windows and prefix-LM masks are
-  not served by K3 and raise (gemma2 and paligemma are later slices).
+  (:func:`repro_torch.kernels.flash.flash_attention`) with the config's
+  window and prefix: causal attention with positions 0..S-1 under
+  ``_mask_block``, which is what the reference's ``_attend`` computes for
+  them.
 * Decode is one query row over the cache in plain torch ops
-  (:func:`_attend_dense`, the reference's dense path).  The reference
-  switches to a blockwise scan for caches longer than 2048; both compute
-  the same softmax, so the port uses the dense form for every length.
+  (:func:`_attend_dense`, the reference's dense path, window included).
+  The reference switches to a blockwise scan for caches longer than 2048;
+  both compute the same softmax, so the port uses the dense form for every
+  length.
 
 The cache is updated in place (the reference returns a new one): prefill
 writes its k/v into the cache it is given and decode writes one slot.
@@ -94,13 +97,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, positions):
 
 
 def _mask_block(q_pos: torch.Tensor, k_pos: torch.Tensor, cfg: AttnConfig):
-    """(S,) x (T,) positions -> (S, T) bool visibility."""
-    m = k_pos[None, :] <= q_pos[:, None]
-    if cfg.window is not None:
-        m &= k_pos[None, :] > q_pos[:, None] - cfg.window
-    if cfg.prefix_len:
-        m |= (k_pos[None, :] < cfg.prefix_len) & (q_pos[:, None] < cfg.prefix_len)
-    return m
+    """(S,) x (T,) positions -> (S, T) bool visibility: K3's predicate."""
+    return flash.visible_mask(q_pos, k_pos, window=cfg.window,
+                              prefix_len=cfg.prefix_len)
 
 
 def _attend_dense(q, k, v, cfg: AttnConfig, q_pos, k_pos, valid=None):
@@ -124,14 +123,12 @@ def _attend_dense(q, k, v, cfg: AttnConfig, q_pos, k_pos, valid=None):
     return out.reshape(b, s, h, hd)
 
 
-def _attend_causal(q, k, v, cfg: AttnConfig):
-    """Global causal attention over positions 0..S-1: kernel K3."""
-    if cfg.window is not None or cfg.prefix_len:
-        raise NotImplementedError(
-            "local windows and prefix-LM masks are not ported: K3 serves "
-            "global causal attention only (ROADMAP.md §1, gemma2 and vlm)")
+def _attend(q, k, v, cfg: AttnConfig):
+    """Attention over positions 0..S-1 under ``_mask_block`` (causal, the
+    config's window and prefix): kernel K3."""
     return flash.flash_attention(q, k, v, scale=cfg.scale, softcap=cfg.softcap,
-                                 causal=True)
+                                 causal=True, window=cfg.window,
+                                 prefix_len=cfg.prefix_len)
 
 
 # --------------------------------------------------------------------------
@@ -141,7 +138,7 @@ def attention(p: dict, x: torch.Tensor, cfg: AttnConfig, positions):
     """Full self-attention over x: (B, S, D), positions 0..S-1."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attend_causal(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = _attend(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"]
 
 
@@ -158,7 +155,7 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig, positions,
     ``cache`` (k/v (B, max_len, KVH, hd), in its own dtype)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attend_causal(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = _attend(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     return out @ p["wo"]

@@ -1,10 +1,16 @@
 """CausalLM — the model API of the server (the reference's
-``repro.models.model.CausalLM`` for the dense global family).
+``repro.models.model.CausalLM`` for the dense and vlm families).
 
     model = CausalLM(cfg)                        # on the card; seed 0
     logits, aux = model.forward(tokens)          # (B, S) -> (B, S, V) f32
     logits, cache = model.prefill(tokens, max_len)       # last-token logits
     logits, cache = model.decode_step(tokens, cache, index)
+
+A vlm (paligemma) takes an optional ``prefix_embeds`` (B, P, D) in
+forward and prefill, concatenated before the token embeddings (the
+reference's stub of the image tower); its first ``cfg.prefix_tokens``
+positions attend bidirectionally, whether they hold that prefix or
+tokens.
 
 The reference keeps its parameters in a plain pytree beside a stateless
 class; here the module owns them, in ``cfg.param_dtype``, and reads them
@@ -69,15 +75,23 @@ class CausalLM(CastParams):
             param_init(self.lm_head, gen)
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
         x = self.embed[tokens].to(self.dtype)
+        if prefix_embeds is not None:
+            if self.cfg.family != "vlm":
+                raise ValueError(f"{self.cfg.name} takes no prefix_embeds "
+                                 "(only the vlm family has a prefix)")
+            x = torch.cat([prefix_embeds.to(self.device, self.dtype), x], dim=1)
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype).item()
         return x
 
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        b, s = tokens.shape
-        return torch.arange(s, device=tokens.device).expand(b, s)
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        b, s = x.shape[:2]
+        return torch.arange(s, device=x.device).expand(b, s)
+
+    def _prefix_len(self) -> int:
+        return self.cfg.prefix_tokens if self.cfg.family == "vlm" else 0
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -97,11 +111,12 @@ class CausalLM(CastParams):
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor):
-        """Full forward over (B, S) tokens.  Returns (logits, aux_loss)."""
-        tokens = tokens.to(self.device)
-        x, aux = stack_forward(self.layers, self._embed(tokens), self.cfg,
-                               self._positions(tokens))
+    def forward(self, tokens: torch.Tensor, prefix_embeds=None):
+        """Full forward over (B, S) tokens (after ``prefix_embeds``, a
+        vlm's).  Returns (logits, aux_loss)."""
+        x = self._embed(tokens.to(self.device), prefix_embeds)
+        x, aux = stack_forward(self.layers, x, self.cfg, self._positions(x),
+                               self._prefix_len())
         return self._unembed(self._final_norm(x)), aux
 
     # --------------------------------------------------------------- serving
@@ -110,12 +125,12 @@ class CausalLM(CastParams):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                cache_dtype=torch.bfloat16):
+                cache_dtype=torch.bfloat16, prefix_embeds=None):
         """Prompt forward + cache build.  Returns (last-token logits
         (B, 1, V), cache)."""
-        tokens = tokens.to(self.device)
-        x, cache = stack_prefill(self.layers, self._embed(tokens), self.cfg,
-                                 self._positions(tokens), max_len, cache_dtype)
+        x = self._embed(tokens.to(self.device), prefix_embeds)
+        x, cache = stack_prefill(self.layers, x, self.cfg, self._positions(x),
+                                 max_len, cache_dtype, self._prefix_len())
         return self._unembed(self._final_norm(x[:, -1:])), cache
 
     @torch.no_grad()

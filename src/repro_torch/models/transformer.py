@@ -1,13 +1,21 @@
-"""Decoder stack of the dense global family (the reference's
-``repro.models.transformer`` for ``family == "dense"`` with
-``layer_pattern == "global"``).
+"""Decoder stack of the dense and vlm families (the reference's
+``repro.models.transformer`` for ``family in ("dense", "vlm")``), with
+global attention or gemma2's local/global alternation.
 
 The reference scans one stacked (L, ...) parameter pytree with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
-Python loop.  The KV cache keeps the reference's stacked layout,
-``{"layers": {"k": (L, B, T, KVH, hd), "v": ...}}``, so a serving slot is
-one index of axis 1 and ``convert`` carries a cache across as it is.
-Other families and patterns raise ``NotImplementedError``.
+Python loop.  With ``layer_pattern == "local_global"`` each entry is a
+:class:`Pair` of a local (windowed) and a global :class:`DenseBlock`, the
+reference's ``stack["pairs"]`` superlayer, under its names ``local`` and
+``global``.  The KV cache keeps the reference's stacked layout,
+``{"layers": {"k": (L, B, T, KVH, hd), "v": ...}}``, or for pairs
+``{"local": {"k": (L/2, B, min(T, window), KVH, hd), ...}, "global":
+{"k": (L/2, B, T, KVH, hd), ...}}`` with the local layers' k/v in a ring
+(position p at slot p mod its length), so a serving slot is one index of
+axis 1 and ``convert`` carries a cache across as it is.  A vlm's prefix
+(``prefix_len``) attends bidirectionally in forward and prefill, as in
+the reference; decode is causal.  Other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,9 +25,12 @@ from torch import nn
 from .attention import (
     Attention,
     AttnConfig,
+    _attend_dense,
+    _project_qkv,
     attention,
     attention_decode,
     attention_prefill,
+    init_kv_cache,
 )
 from .config import ModelConfig
 from .layers import empty_param, rms_norm
@@ -28,13 +39,17 @@ from .mlp import MLP
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless the port has this config's family and layer pattern."""
-    if cfg.family != "dense" or cfg.layer_pattern != "global":
+    if cfg.family not in ("dense", "vlm") or cfg.layer_pattern not in (
+            "global", "local_global"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with layer pattern "
             f"{cfg.layer_pattern!r} is not ported yet; repro_torch serves the "
-            "dense family with global attention (ROADMAP.md §1 queues gemma2's "
-            "local/global pairs, MoE, RWKV6, Mamba2/zamba2 and the vlm/audio "
-            "stubs)")
+            "dense and vlm families with global or local/global attention "
+            "(ROADMAP.md §1 queues MoE, RWKV6, Mamba2/zamba2 and the audio "
+            "stub)")
+    if cfg.layer_pattern == "local_global" and cfg.n_layers % 2:
+        raise ValueError(f"{cfg.name}: local/global pairs need an even layer "
+                         f"count, got {cfg.n_layers}")
 
 
 def attn_cfg_for(cfg: ModelConfig, window: int | None, prefix_len: int = 0) -> AttnConfig:
@@ -108,43 +123,135 @@ class DenseBlock(nn.Module):
             x, lambda h, p: attention_decode(p, h, cache, index, acfg))
 
 
+class Pair(nn.ModuleDict):
+    """gemma2's superlayer: a local (windowed) block, then a global one."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        super().__init__({name: DenseBlock(cfg, device=device, dtype=dtype)
+                          for name in ("local", "global")})
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for block in self.values():
+            block.reset_parameters(generator)
+
+
+def _decode_ring(block: DenseBlock, x, cache: dict, index: int, acfg: AttnConfig):
+    """One-token decode of a local block against its ring cache (k/v (B,
+    W, KVH, hd), W = min(max_len, window)): the new k/v go to slot index
+    mod W, and slot i holds the latest position <= index that maps to it
+    (a negative one is not yet written)."""
+    def attend(h, p):
+        b = h.shape[0]
+        tlen = cache["k"].shape[1]
+        positions = torch.full((b, 1), index, dtype=torch.int64, device=h.device)
+        q, k, v = _project_qkv(p, h, acfg, positions)
+        slot = index % tlen
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        age = (slot - torch.arange(tlen, device=h.device)) % tlen   # 0 = newest
+        k_pos = index - age
+        q_pos = torch.full((1,), index, device=h.device)
+        out = _attend_dense(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), acfg,
+                            q_pos, k_pos, valid=k_pos >= 0)
+        return out.reshape(b, 1, acfg.n_heads * acfg.head_dim) @ p["wo"]
+
+    return block._residual(x, attend)
+
+
+def _ring_from_full(cache: dict, s: int, local_len: int) -> dict:
+    """The last min(s, local_len) k/v entries of a prefill cache (k/v (B,
+    >= s, KVH, hd), entries 0..s-1 written) laid out at ring slots (pos mod
+    local_len); the other slots are zero."""
+    take = min(s, local_len)
+    start = s - take
+    slots = (start + torch.arange(take, device=cache["k"].device)) % local_len
+
+    def fold(a):
+        out = a.new_zeros((a.shape[0], local_len) + tuple(a.shape[2:]))
+        out[:, slots] = a[:, start:s]
+        return out
+
+    return {"k": fold(cache["k"]), "v": fold(cache["v"])}
+
+
 # ==========================================================================
 # Stack: init + forward + prefill + decode
 # ==========================================================================
 def init_stack(cfg: ModelConfig, *, device=None, dtype=torch.float32) -> nn.ModuleList:
     check_supported(cfg)
+    if cfg.layer_pattern == "local_global":
+        return nn.ModuleList(Pair(cfg, device=device, dtype=dtype)
+                             for _ in range(cfg.n_layers // 2))
     return nn.ModuleList(DenseBlock(cfg, device=device, dtype=dtype)
                          for _ in range(cfg.n_layers))
 
 
-def stack_forward(layers: nn.ModuleList, x, cfg: ModelConfig, positions):
+def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
+    return (attn_cfg_for(cfg, cfg.local_window, prefix_len),
+            attn_cfg_for(cfg, None, prefix_len))
+
+
+def stack_forward(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
+                  prefix_len: int = 0):
     """Run the full layer stack.  x: (B, S, D).  Returns (x, aux_loss)."""
-    acfg = attn_cfg_for(cfg, None)
-    for block in layers:
-        x = block(x, acfg, positions)
+    if cfg.layer_pattern == "local_global":
+        a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
+        for pair in layers:
+            x = pair["local"](x, a_loc, positions)
+            x = pair["global"](x, a_glo, positions)
+    else:
+        acfg = attn_cfg_for(cfg, None, prefix_len)
+        for block in layers:
+            x = block(x, acfg, positions)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _local_len(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.local_window or max_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
     """Decode state for one-token serve steps, stacked over layers."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+    def kv(n, length):
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.layer_pattern == "local_global":
+        half = cfg.n_layers // 2
+        return {"local": kv(half, _local_len(cfg, max_len)),
+                "global": kv(half, max_len)}
+    return {"layers": kv(cfg.n_layers, max_len)}
 
 
-def _layer_cache(cache: dict, i: int) -> dict:
-    return {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i]}
+def _layer_cache(group: dict, i: int) -> dict:
+    """Layer ``i``'s k/v (views) of one stacked group of the cache."""
+    return {"k": group["k"][i], "v": group["v"][i]}
 
 
 def stack_prefill(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
-                  max_len: int, cache_dtype=torch.bfloat16):
+                  max_len: int, cache_dtype=torch.bfloat16, prefix_len: int = 0):
     """Forward over the prompt, returning (x, decode cache at ``max_len``)."""
     cache = init_cache(cfg, x.shape[0], max_len, cache_dtype, x.device)
-    acfg = attn_cfg_for(cfg, None)
+    if cfg.layer_pattern == "local_global":
+        a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
+        b, s = x.shape[:2]
+        for i, pair in enumerate(layers):
+            # the local layer's k/v at full length, folded into its ring
+            full = init_kv_cache(b, s, a_loc, cache_dtype, x.device)
+            x = pair["local"].prefill(x, a_loc, positions, full)
+            ring = _ring_from_full(full, s, _local_len(cfg, max_len))
+            for name in ("k", "v"):
+                cache["local"][name][i] = ring[name]
+            x = pair["global"].prefill(x, a_glo, positions,
+                                       _layer_cache(cache["global"], i))
+        return x, cache
+    acfg = attn_cfg_for(cfg, None, prefix_len)
     for i, block in enumerate(layers):
-        x = block.prefill(x, acfg, positions, _layer_cache(cache, i))
+        x = block.prefill(x, acfg, positions, _layer_cache(cache["layers"], i))
     return x, cache
 
 
@@ -152,7 +259,15 @@ def stack_decode(layers: nn.ModuleList, x, cache: dict, index: int,
                  cfg: ModelConfig):
     """One-token decode through the stack.  x: (B, 1, D); ``cache`` is
     updated in place and returned."""
+    if cfg.layer_pattern == "local_global":
+        a_loc, a_glo = _pair_cfgs(cfg)
+        for i, pair in enumerate(layers):
+            x = _decode_ring(pair["local"], x, _layer_cache(cache["local"], i),
+                             index, a_loc)
+            x = pair["global"].decode(x, _layer_cache(cache["global"], i), index,
+                                      a_glo)
+        return x, cache
     acfg = attn_cfg_for(cfg, None)
     for i, block in enumerate(layers):
-        x = block.decode(x, _layer_cache(cache, i), index, acfg)
+        x = block.decode(x, _layer_cache(cache["layers"], i), index, acfg)
     return x, cache

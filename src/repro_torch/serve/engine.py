@@ -3,8 +3,9 @@
 
 Requests are packed into FIXED slots: a free slot is refilled from the
 queue at the next prefill opportunity, so the decode batch shape never
-changes.  Prefill runs per slot at batch 1 and its cache is spliced into
-the batch cache at the slot's index of axis 1.
+changes.  Prefill runs per slot at batch 1 and every leaf of its cache
+(``layers``, or gemma2's ``local`` ring and ``global`` k/v) is spliced
+into the batch cache at the slot's index of axis 1.
 
 All occupied slots decode in lockstep at one index, the largest position
 among them (the reference's simple baseline, mirrored here and recorded as
@@ -35,6 +36,12 @@ class Request:
     temperature: float = 0.0        # 0 = greedy
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
+
+
+def _leaves(tree: dict) -> list[torch.Tensor]:
+    """The tensors of a cache tree (nested dicts), in key order."""
+    return [leaf for key in sorted(tree) for leaf in
+            (_leaves(tree[key]) if isinstance(tree[key], dict) else [tree[key]])]
 
 
 class _Phase:
@@ -106,8 +113,9 @@ class ServeEngine:
             with _Phase(self, "prefill"):
                 logits, cache1 = self.model.prefill(toks, self.max_len,
                                                     self.cache_dtype)
-                for name in ("k", "v"):
-                    self.cache["layers"][name][:, slot] = cache1["layers"][name][:, 0]
+                # splice every leaf of the one-sequence cache into the slot
+                for full, one in zip(_leaves(self.cache), _leaves(cache1)):
+                    full[:, slot] = one[:, 0]
                 first = self._sample(logits[:, 0], [req.temperature])[0]
             self.tokens["prefill"] += plen
             req.out_tokens.append(int(first))

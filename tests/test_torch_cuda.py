@@ -406,9 +406,7 @@ def _qkv(dev, dtype, b, s, t, h, kvh, hd, seed=0):
     return q, k, v
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", k3.HEAD_DIMS)
-@pytest.mark.parametrize("b,h,kvh,s,t,softcap,causal", [
+K3_SHAPES = [
     (2, 4, 2, 200, 200, None, True),    # ragged last q block and key tile
     (2, 4, 4, 64, 64, 30.0, True),
     (2, 6, 2, 70, 130, None, False),    # S != T
@@ -417,14 +415,27 @@ def _qkv(dev, dtype, b, s, t, h, kvh, hd, seed=0):
     (2, 4, 2, 129, 129, None, True),    # one row past a 128-row block
     (1, 4, 2, 1, 300, None, False),     # one query, ragged 128-key tiles
     (2, 4, 2, 300, 300, 30.0, True),
-])
-def test_k3_matches_plain(dev, dtype, hd, b, h, kvh, s, t, softcap, causal):
+]
+# (window, prefix_len) on the causal shapes: a window of one key (each row
+# sees itself only), windows on and one past the 64- and 128-key tile
+# edges, a prefix short of, across and past a 128-row block, and both
+K3_MASKS = [(None, 0), (1, 0), (63, 0), (64, 0), (129, 0), (None, 127),
+            (None, 257), (None, 4096), (100, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", k3.HEAD_DIMS)
+@pytest.mark.parametrize("b,h,kvh,s,t,softcap,causal,window,prefix", [
+    shape + mask for shape in K3_SHAPES
+    for mask in (K3_MASKS if shape[-1] else [(None, 0)])])
+def test_k3_matches_plain(dev, dtype, hd, b, h, kvh, s, t, softcap, causal,
+                          window, prefix):
     q, k, v = _qkv(dev, dtype, b, s, t, h, kvh, hd)
+    kw = dict(softcap=softcap, causal=causal, window=window, prefix_len=prefix)
     before = k3.flash_attention.launches
-    got = k3.flash_attention(q, k, v, softcap=softcap, causal=causal)
+    got = k3.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert k3.flash_attention.launches == before + 1
-    kw = dict(softcap=softcap, causal=causal)
     want = k3.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     bound = k3.error_bound(q, k, v, want, **kw)
@@ -445,3 +456,36 @@ def test_k3_rejects_what_it_cannot_take(dev):
         k3.flash_attention(q, k.cpu(), v)
     with pytest.raises(TypeError):
         k3.flash_attention(q, k.bfloat16(), v)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "paligemma-3b"])
+def test_local_and_prefix_models_serve_the_cpu_tokens(dev, arch):
+    """gemma2's smoke model (window 16, prompts past it, decode past the
+    ring's wrap) and paligemma's (prefix 8), float32, served on the card
+    with K3 give the CPU run's greedy tokens; K3 launches once per layer
+    per prefill."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import CausalLM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 9, 30)]
+    cpu_model = CausalLM(cfg, device="cpu", seed=0)
+    # the same weights on the card (a CUDA generator draws other numbers)
+    params = convert.lm_params_to_reference(cpu_model)
+    out = {}
+    for device in ("cpu", dev):
+        model = (cpu_model if device == "cpu" else
+                 convert.lm_params_from_reference(params, cfg, device=device))
+        eng = ServeEngine(model, 2, 48)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+        out[str(device)] = {r.rid: r.out_tokens for r in eng.run()}
+        launches = eng.k3_launches
+    assert out["cpu"] == out["cuda"]
+    assert launches == {"prefill": len(prompts) * cfg.n_layers, "decode": 0}

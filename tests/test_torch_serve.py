@@ -1,5 +1,5 @@
 """The port's ServeEngine against the JAX package's, and the port's LM
-rules: what it refuses, and where it runs.
+rules: what it refuses, what reaches K3, and where it runs.
 
 Engine parity: the same parameters (JAX ``CausalLM.init``, carried across
 with ``repro_torch.convert``), 2 slots and 3 requests so that a slot is
@@ -114,25 +114,38 @@ def test_sampling_is_per_slot_and_reproducible():
 # (f) what the port refuses, and where it runs
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", [a for a in ARCHS if a not in
-                                  ("starcoder2-3b", "chatglm3-6b", "qwen1.5-32b")])
+                                  ("starcoder2-3b", "chatglm3-6b", "qwen1.5-32b",
+                                   "gemma2-2b", "paligemma-3b")])
 def test_unported_families_and_patterns_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         CausalLM(get_smoke(arch), device="cpu")
 
 
-def test_k3_refuses_windows_and_prefixes():
+def test_k3_takes_windows_and_prefixes_on_the_cpu():
+    """A window and a prefix reach K3's wrapper, which runs its plain
+    version on CPU tensors: the same output as the plain version with that
+    mask, unlike the global causal one, and no launch."""
     cfg = PA.AttnConfig(d_model=16, n_heads=2, n_kv_heads=1, head_dim=8)
-    x = torch.zeros(1, 4, 16)
-    p = {name: torch.zeros(shape) for name, shape in
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 6, 16, generator=gen)
+    p = {name: torch.randn(shape, generator=gen) for name, shape in
          (("wq", (16, 16)), ("wk", (16, 8)), ("wv", (16, 8)), ("wo", (16, 16)))}
-    pos = torch.arange(4)[None]
-    for bad in (dataclasses.replace(cfg, window=2),
-                dataclasses.replace(cfg, prefix_len=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PA.attention(p, x, bad, pos)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PA.attention_prefill(p, x, bad, pos, PA.init_kv_cache(1, 8, bad))
-    assert PA.attention(p, x, cfg, pos).shape == (1, 4, 16)
+    pos = torch.arange(6)[None]
+    flash_attention.launches = 0
+    plain = PA.attention(p, x, cfg, pos)
+    for masked in (dataclasses.replace(cfg, window=2),
+                   dataclasses.replace(cfg, prefix_len=4)):
+        q, k, v = PA._project_qkv(p, x, masked, pos)
+        want = flash.flash_attention_ref(
+            q, k, v, scale=masked.scale, window=masked.window,
+            prefix_len=masked.prefix_len).reshape(1, 6, 16) @ p["wo"]
+        got = PA.attention(p, x, masked, pos)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert not torch.allclose(got, plain)
+        cache = PA.init_kv_cache(1, 8, masked, dtype=torch.float32)
+        torch.testing.assert_close(PA.attention_prefill(p, x, masked, pos, cache),
+                                   want, rtol=0, atol=0)
+    assert flash_attention.launches == 0
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
