@@ -83,36 +83,54 @@ Phases (any failure exits non-zero and prints no result line):
    hd 64/128/256 and float32 at hd 64 x S = T in {200, 2048, 4500} x
    window in {1, 63, 64, 129, 1000, S} and prefix in {1, 127, 300, S + 1}
    (and window 129 with prefix 300) x softcap in {None, 50}, stopping at
-   the first case beyond the bound;
-7. drive the LM serving path at full width, three models in turn, each
+   the first case beyond the bound; then at hd 80 (zamba2's shared block:
+   the mma.sync kernel in bf16, the FMA kernel in float32) x S = T in {1,
+   63, 64, 65, 1000, 2048} x causal off, causal, windows 63 and 1000;
+7. drive the LM serving path at full width, six models in turn, each
    freed before the next: starcoder2-3b (30 layers, d_model 3072, 24
    query heads over 2 KV heads, hd 128; 8 requests of 2048 tokens,
    max_len 4096), gemma2-2b (26 layers in 13 local/global pairs, window
    4096, attention softcap 50, hd 256, 8 query heads over 4 KV heads; 8
-   requests of 6144 tokens, past the window, max_len 8192) and
+   requests of 6144 tokens, past the window, max_len 8192),
    paligemma-3b (18 layers, hd 256, 8 query heads over 1 KV head, a
    bidirectional prefix of 256 tokens; 8 requests of 512 tokens, max_len
-   1024): the port's own weights from seed 0 (float32 parameters,
-   bfloat16 compute, float32 cache), ``ServeEngine`` with 4 slots, 32 new
-   tokens each, greedy.  K3's counters are zeroed just before each run and
-   read just after: requests x layers launches, all of them inside
-   prefill calls and none inside decode calls (the engine reads the
-   counter around each), of which requests x 13 with gemma2's window and
-   requests x 18 with paligemma's prefix.  Prefill and decode are timed
-   apart with CUDA events; one request's prefill logits are held against
-   the same prefill with K3's plain version in its place (a sanity check:
-   5e-2 of the largest logit; a control logs the gap with the plain
-   version's window or prefix dropped); a profiler pass splits one prefill and a few decode
+   1024), deepseek-moe-16b (28 layers, the first dense, 27 MoE layers of
+   64 routed experts top-6 and 2 shared, 16 heads at hd 128; bfloat16
+   parameters, since its float32 ones and their bf16 copy take 98 GB),
+   zamba2-2.7b (54 Mamba2 layers, a shared attention block after every 6,
+   32 heads at hd 80) and rwkv6-3b (32 layers, no attention), the last
+   three with 8 requests of 2048 tokens, max_len 4096: the port's own
+   weights from seed 0 (float32 parameters unless said, bfloat16 compute,
+   float32 cache), ``ServeEngine`` with 4 slots, 32 new tokens each,
+   greedy.  K3's counters are zeroed just before each run and read just
+   after: requests x attention layers launches (224 / 72 / 0 for the last
+   three), all of them inside prefill calls and none inside decode calls
+   (the engine reads the counter around each), of which requests x 13
+   with gemma2's window and requests x 18 with paligemma's prefix.
+   Prefill and decode are timed apart with CUDA events; logits after the
+   run must be finite; one request's prefill logits are held against the
+   same prefill with K3's plain version in its place (a sanity check: 5e-2
+   of the largest logit; for deepseek with K3's top-k routing replayed, as
+   a rounding can send a token to another expert; a control logs the gap
+   with the plain version's window, prefix or causal mask dropped);
+   deepseek's prefill must repeat bit for bit (its MoE combine sums in a
+   fixed order); rwkv6's first layer's chunked WKV is held to the exact
+   scan on the same inputs (the gap reported against the reference's
+   1e-5 relative); a profiler pass splits one prefill and a few decode
    steps into device time and K3's share.  At each model's main shapes
-   (q/k/v of its first layer, both layers of gemma2's first pair, for one
-   of the run's prompts) K3 is held against its plain version and timed
-   beside it, beside its operations bound over the visible (query, key)
-   pairs and beside the library yardstick, which the port never calls and
-   which is held to the same bound: ``scaled_dot_product_attention`` with
-   the same mask, or, where gemma2's softcap applies, ``flex_attention``
-   with the softcap as its score_mod and the mask as its block mask;
-8. print the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
-   result line ``{"ok": true, "device": {...}}``.
+   (the q/k/v of the first K3 launch of each mask in one prefill: the
+   first layer, both layers of gemma2's first pair, zamba2's first shared
+   block) K3 is held against its plain version and timed beside it,
+   beside its operations bound over the visible (query, key) pairs and
+   beside the library yardstick, which the port never calls and which is
+   held to the same bound: ``scaled_dot_product_attention`` with the same
+   mask, or, where gemma2's softcap applies, ``flex_attention`` with the
+   softcap as its score_mod and the mask as its block mask;
+8. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
+   them, and K3 once for each serving run that attends, named for its
+   mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
+   at deepseek's hd 128, ``_hd80`` at zamba2's), the ``nvidia-smi`` line
+   and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
 of order 0.1 — the kernels sum in another order than the plain versions
@@ -130,6 +148,7 @@ allowed, as for the ulp).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -162,9 +181,8 @@ from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
-from repro_torch.models.attention import _project_qkv  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
-from repro_torch.models.transformer import attn_cfg_for  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sim.service import SimService  # noqa: E402
 
@@ -208,23 +226,61 @@ class ServeRun(NamedTuple):
     requests: int
     prompt: int
     new: int
+    param_dtype: str | None = None   # None: the config's
 
 
 # the serving runs: starcoder2 (global causal), gemma2 (prompts past its
 # 4096-key window: every local layer masks and its ring wraps), paligemma
-# (a 256-token bidirectional prefix)
+# (a 256-token bidirectional prefix), deepseek-moe-16b (K3 at hd 128 on
+# every layer, the MoE FFN; its float32 weights and their bf16 copy, 98 GB,
+# do not fit in 80 GB, so its weights are bf16), zamba2-2.7b (K3 at hd 80
+# in the shared block once per group of 6 Mamba2 layers), rwkv6-3b (no
+# attention: no K3)
 SERVE_RUNS = (ServeRun("starcoder2-3b", 4, 4096, 8, 2048, 32),
               ServeRun("gemma2-2b", 4, 8192, 8, 6144, 32),
-              ServeRun("paligemma-3b", 4, 1024, 8, 512, 32))
+              ServeRun("paligemma-3b", 4, 1024, 8, 512, 32),
+              ServeRun("deepseek-moe-16b", 4, 4096, 8, 2048, 32, "bfloat16"),
+              ServeRun("zamba2-2.7b", 4, 4096, 8, 2048, 32),
+              ServeRun("rwkv6-3b", 4, 4096, 8, 2048, 32))
+# K3 at zamba2's head dim on its own kernel path (mma.sync in bf16, FMA in
+# float32): ragged lengths around its 64-row blocks and key tiles
+K3_HD80_LENGTHS = (1, 63, 64, 65, 1000, 2048)
 
 
 def model_mask(cfg) -> str:
-    """The mask that sets a model apart, and the K3 entry of the kernels
-    line it serves: gemma2's local layers' window, a vlm's prefix, else
-    the causal mask."""
+    """The mask that sets a model apart, whose K3 launch fills the model's
+    entry of the kernels line: gemma2's local layers' window, a vlm's
+    prefix, else the causal mask."""
     if cfg.layer_pattern == "local_global":
         return "window"
     return "prefix" if cfg.family == "vlm" else "causal"
+
+
+def kernel_entry(cfg) -> str:
+    """The model's K3 entry of the kernels line, named for what sets its
+    launches apart: gemma2's window, a vlm's prefix, zamba2's hd 80 (the
+    mma.sync kernel), the MoE family's layers; else causal K3."""
+    mask = model_mask(cfg)
+    if mask != "causal":
+        return f"flash_attention_{mask}"
+    if cfg.hd == 80:
+        return "flash_attention_hd80"
+    return "flash_attention_moe" if cfg.family == "moe" else "flash_attention"
+
+
+def attention_calls(cfg) -> int:
+    """K3 launches per prefill: one per attention layer (zamba2's shared
+    block once per group; none in rwkv6)."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def call_mask(kw: dict) -> str:
+    """The mask of one K3 call's keyword arguments."""
+    if kw.get("window") is not None:
+        return "window"
+    return "prefix" if kw.get("prefix_len") else "causal"
 
 
 def log(msg: str) -> None:
@@ -568,7 +624,7 @@ class Smoke:
         # first session of the process
         gen = torch.Generator(device=self.dev).manual_seed(0)
         combos = [(dtype, hd) for dtype in (torch.float32, torch.bfloat16)
-                  for hd in (16, 64, 128, 256)]
+                  for hd in (16, 64, 80, 128, 256)]
         inputs = [self._qkv(gen, dtype, 1, 200, 4, 2, hd) for dtype, hd in combos]
         names = k3_kernel_names([lambda x=x: k3.flash_attention(*x) for x in inputs])
         log("[K3 kernels] " + "; ".join(
@@ -1439,9 +1495,45 @@ class Smoke:
         log(f"[K3 window/prefix vs plain] {count} cases within tolerance; worst "
             f"|err| / bound over elements: {json.dumps(worst)}")
 
+    def check_k3_hd80(self) -> None:
+        """K3 at hd 80 (zamba2's shared attention block: the mma.sync
+        kernel in bf16, the FMA kernel in float32) against its plain
+        version, element by element within ``error_bound``: causal and
+        not, with and without a window, at lengths around its 64-row
+        blocks and 64-key tiles."""
+        gen = torch.Generator(device=self.dev).manual_seed(2)
+        worst, count = {}, 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in K3_HD80_LENGTHS:
+                q, k, v = self._qkv(gen, dtype, 1, s, 4, 2, 80)
+                for causal, window in ((False, None), (True, None), (True, 63),
+                                       (True, 1000)):
+                    kw = dict(causal=causal, window=window)
+                    got = k3.flash_attention(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    want = k3.flash_attention_ref(q, k, v, **kw)
+                    err, ratio = k3_error(q, k, v, got, want, kw)
+                    tag = str(dtype).split(".")[1]
+                    worst[tag] = max(worst.get(tag, 0.0), ratio)
+                    count += 1
+                    if not ratio <= 1.0 or got.shape != q.shape:
+                        raise AssertionError(
+                            f"K3 {tag} hd=80 S=T={s} causal={causal} window={window}: "
+                            f"max |err| {err:.3e}, {ratio:.3f} of the bound at the "
+                            "worst element")
+                del q, k, v, got, want
+        log(f"[K3 hd=80 vs plain] {count} cases within tolerance; worst |err| / "
+            f"bound over elements, by dtype: {json.dumps(worst)}")
+
     # ------------------------------------------------------------ phase 7
     def serve_main(self, run: "ServeRun") -> None:
         cfg = get_config(run.arch)
+        if run.param_dtype and run.param_dtype != cfg.param_dtype:
+            log(f"[serve {run.arch}] param_dtype {cfg.param_dtype} -> {run.param_dtype}: "
+                f"{cfg.param_count()[0]:,} parameters in float32 and their bf16 copy "
+                f"for compute take {cfg.param_count()[0] * 6 / 1e9:.1f} GB, more than "
+                "the card's 80 GB; in bfloat16 the weights are read as they are")
+            cfg = dataclasses.replace(cfg, param_dtype=run.param_dtype)
         t0 = time.perf_counter()
         model = CausalLM(cfg, device=self.dev, seed=0)
         torch.cuda.synchronize()
@@ -1474,11 +1566,12 @@ class Smoke:
                     and run.prompt > cfg.local_window else 0)
         prefixed = cfg.n_layers if mask == "prefix" else 0
         want_masks = {"window": run.requests * windowed, "prefix": run.requests * prefixed}
-        if launches != run.requests * cfg.n_layers or phases != {
+        calls = attention_calls(cfg)
+        if launches != run.requests * calls or phases != {
                 "prefill": launches, "decode": 0} or masks != want_masks:
             raise AssertionError(f"K3 launched {launches} times ({phases} by "
                                  f"phase, {masks} with a mask), expected "
-                                 f"{run.requests} prefills x {cfg.n_layers} layers "
+                                 f"{run.requests} prefills x {calls} attention layers "
                                  f"({want_masks} with a mask), none in decode")
         if len(finished) != run.requests or any(len(r.out_tokens) != run.new
                                                 for r in finished):
@@ -1502,55 +1595,141 @@ class Smoke:
             f"{eng.tokens['decode'] / dec_ms * 1e3:.1f} tok/s ({per_step:.4f} "
             f"ms/step); run wall {wall:.2f} s; K3 launches {launches} (prefill "
             f"{phases['prefill']}, decode {phases['decode']}{mask_note}); peak "
-            f"device memory {peak:.2f} GiB; first tokens {finished[0].out_tokens[:6]}")
-        self.prefill_vs_plain(model, run, prompts[0])
+            f"device memory {peak:.2f} GiB; first tokens {finished[0].out_tokens[:6]}; "
+            "logits after the run finite")
+        if calls:
+            self.prefill_vs_plain(model, run, prompts[0])
+        if cfg.family == "moe":
+            self.moe_prefill_repeats(model, run, prompts[0])
+        if cfg.family == "ssm":
+            self.wkv_chunked_vs_exact(model, run, prompts[0])
         self.profile_serve(model, eng, run, prompts[0], per_request, per_step)
-        self.k3_main_shapes(model, cfg, run, prompts[0],
-                            {"causal": launches, **masks},
-                            {name: n / run.requests for name, n in phases.items()})
+        if calls:
+            self.k3_main_shapes(model, cfg, run, prompts[0],
+                                {"causal": launches, **masks},
+                                {name: n / run.requests for name, n in phases.items()})
 
     def prefill_vs_plain(self, model, run, prompt) -> None:
         """A sanity check of the whole prefill: one request's logits with
         K3 against the same prefill with K3's plain version in its place
         (every layer's attention, its window and prefix included), within
         5e-2 of the largest logit.  The two differ by bf16 roundings (K3
-        rounds p for p.v), carried through the layers.  A control logs the
-        gap of the plain version with the model's window or prefix
-        dropped: what this check would see of a K3 that lost its mask
-        (gemma2's lost window shows far above the limit, paligemma's lost
-        prefix below it).  The element-wise ``error_bound`` checks at the
-        main shapes and in the mask matrix are what hold K3's masks."""
+        rounds p for p.v, or to TF32 at hd 80), carried through the layers.
+        A control logs the gap of the plain version with the model's mask
+        dropped (its window or prefix, or for a causal model the causal
+        mask): what this check would see of a K3 that lost it (gemma2's lost
+        window shows far above the limit, paligemma's lost prefix below it).
+        The element-wise ``error_bound`` checks at the main shapes and in the
+        mask matrix are what hold K3's masks."""
         toks = torch.as_tensor(prompt, device=self.dev)[None]
         plain = k3.flash_attention_ref
+        mask = model_mask(model.cfg)
+        moe = model.cfg.family == "moe"
 
         def unmasked(q, k, v, **kw):
-            return plain(q, k, v, **{**kw, "window": None, "prefix_len": 0})
+            lost = ({"causal": False} if mask == "causal"
+                    else {"window": None, "prefix_len": 0})
+            return plain(q, k, v, **{**kw, **lost})
 
-        def prefill_with(attend=None):
-            kernel = k3.flash_attention
+        def prefill_with(attend=None, routes=None):
+            """The prefill's logits, K3 replaced by ``attend``; for a MoE
+            model, each layer's routing appended to ``routes`` when it is
+            empty, else replayed from it in layer order."""
+            kernel, route = k3.flash_attention, moe_mod.route
+            replay = iter(list(routes)) if routes else None
+
+            def routing(router, tokens, cfg):
+                if replay is not None:
+                    return next(replay)
+                out = route(router, tokens, cfg)
+                routes.append(out)
+                return out
+
             if attend is not None:
                 k3.flash_attention = attend         # what attention calls
+            if routes is not None:
+                moe_mod.route = routing             # what moe_ffn calls
             try:
                 return model.prefill(toks, run.max_len, torch.float32)[0]
             finally:
-                k3.flash_attention = kernel
+                k3.flash_attention, moe_mod.route = kernel, route
 
-        got, want = prefill_with(), prefill_with(plain)
+        # a MoE model's top-k routing is discontinuous: the plain version's
+        # roundings can send a token to another expert, which no tolerance
+        # on the logits covers, so the plain prefills replay K3's routing
+        routes = [] if moe else None
+        got = prefill_with(routes=routes)
+        want = prefill_with(plain, routes)
         top = want.abs().max()
         rel = float((got - want).abs().max() / top)
         same = bool((got.argmax(-1) == want.argmax(-1)).all())
-        mask = model_mask(model.cfg)
-        control = ""
-        if mask != "causal":
-            lost = float((prefill_with(unmasked) - want).abs().max() / top)
-            control = (f"; control, the plain version without the {mask}: "
-                       f"{lost:.3e} of max |logit|")
+        lost = float((prefill_with(unmasked, routes) - want).abs().max() / top)
+        how = free = ""
+        if moe:
+            own = float((prefill_with(plain) - got).abs().max() / top)
+            how = " with K3's routing replayed"
+            free = (f"; with the plain version routing its own tokens: {own:.3e} "
+                    "(routing flips)")
         log(f"[serve {run.arch} vs plain] prefill logits of one request: max "
-            f"|K3 - plain| = {rel:.3e} of max |logit| ({float(top):.3f}); "
-            f"same greedy token: {same}{control}")
+            f"|K3 - plain| = {rel:.3e} of max |logit| ({float(top):.3f}){how}; "
+            f"same greedy token: {same}; control, the plain version without the "
+            f"{mask} mask: {lost:.3e} of max |logit|{free}")
         if not rel <= 5e-2:
             raise AssertionError(f"{run.arch}: prefill logits with K3 differ from "
                                  f"the plain version's by {rel:.3e} of their largest")
+
+    def moe_prefill_repeats(self, model, run, prompt) -> None:
+        """The MoE combine gathers each token's k expert outputs back in
+        token order and sums them in a fixed order (no atomics): two
+        identical prefills must give bit-identical logits and caches."""
+        toks = torch.as_tensor(prompt, device=self.dev)[None]
+        (a, ca), (b, cb) = (model.prefill(toks, run.max_len, torch.float32)
+                            for _ in range(2))
+        same = torch.equal(a, b) and all(
+            torch.equal(x, y) for g in ca for x, y in zip(ca[g].values(), cb[g].values()))
+        log(f"[serve {run.arch} MoE repeat] two identical prefills: logits and "
+            f"caches bit for bit equal: {same}")
+        if not same:
+            raise AssertionError(f"{run.arch}: two identical prefills differ "
+                                 f"(max |logit diff| {float((a - b).abs().max()):.3e})")
+
+    def wkv_chunked_vs_exact(self, model, run, prompt) -> None:
+        """One full-width layer's chunked WKV (layer 0 of a prefill, its
+        float32 r/k/v/w/u as the model computes them) against the exact
+        step scan on the same inputs.  The reference's tolerance
+        (tests/test_rwkv_chunked.py) is 1e-5 relative; the gap is reported:
+        the intra-chunk factorisation clips its exponents at +-60, which
+        the decays of real widths may reach.  Both must be finite."""
+        from repro_torch.models import rwkv6
+
+        toks = torch.as_tensor(prompt, device=self.dev)[None]
+        seen = []
+        chunked = rwkv6.wkv6_chunked
+
+        def first(*args):
+            if not seen:
+                seen.append(args)
+            return chunked(*args)
+
+        rwkv6.wkv6_chunked = first
+        try:
+            model.prefill(toks, run.max_len, torch.float32)
+        finally:
+            rwkv6.wkv6_chunked = chunked
+        r, k, v, w, u, state = seen[0]
+        o1, s1 = chunked(r, k, v, w, u, state)
+        o2, s2 = rwkv6.wkv6_steps(r, k, v, w, u, state)
+        rel_o = float((o1 - o2).abs().max() / o2.abs().max())
+        rel_s = float((s1 - s2).abs().max() / s2.abs().max())
+        finite = all(bool(torch.isfinite(t).all()) for t in (o1, o2, s1, s2))
+        log(f"[serve {run.arch} WKV chunked vs exact] layer 0, B=1 S={r.shape[1]} "
+            f"H={r.shape[2]} K={r.shape[3]}, float32: max |chunked - exact| / max "
+            f"|exact| = {rel_o:.3e} (outputs), {rel_s:.3e} (final state); within the "
+            f"reference's 1e-5: {max(rel_o, rel_s) <= 1e-5}; min decay "
+            f"{float(w.min()):.3e}, largest chunk decay exponent "
+            f"{float(-torch.log(w).reshape(1, -1, 32, *w.shape[2:]).sum(2).max()):.2f}")
+        if not finite:
+            raise AssertionError(f"{run.arch}: the chunked or exact WKV is not finite")
 
     def profile_serve(self, model, eng, run, prompt, prefill_ms, step_ms) -> None:
         """Device time of one prefill and 5 decode steps under
@@ -1604,28 +1783,29 @@ class Smoke:
 
     def k3_main_shapes(self, model, cfg, run, prompt, launches: dict,
                        per_request: dict) -> None:
-        """K3 on the first layer's q/k/v for one of the run's prompts (the
-        same functions prefill runs; both layers of gemma2's first pair),
-        against its plain version and, where one PyTorch call computes the
-        same function (no softcap), ``scaled_dot_product_attention``."""
+        """K3 on the q/k/v of the first launch of each mask kind in one
+        prefill of one of the run's prompts (the first layer; gemma2's local
+        and global layers of its first pair), against its plain version and
+        the library yardstick: ``scaled_dot_product_attention`` with the
+        same mask or, where a softcap applies, ``flex_attention``.  The
+        launch of the model's own mask (``model_mask``) fills the run's
+        entry of the kernels line."""
         toks = torch.as_tensor(prompt, device=self.dev)[None]
-        first = model.layers[0]
-        entry = model_mask(cfg)
-        if entry == "window":
-            layers = [("window", first["local"], attn_cfg_for(cfg, cfg.local_window)),
-                      ("causal", first["global"], attn_cfg_for(cfg, None))]
-        elif entry == "prefix":
-            layers = [("prefix", first, attn_cfg_for(cfg, None, cfg.prefix_tokens))]
-        else:
-            layers = [("causal", first, attn_cfg_for(cfg, None))]
-        for mask, block, acfg in layers:
-            with torch.no_grad():
-                x = model._embed(toks)
-                h = block._norm("norm_attn", x, cfg.post_norms)
-                q, k, v = _project_qkv(block.attn.weights(model.dtype), h, acfg,
-                                       model._positions(x))
-            kw = dict(scale=acfg.scale, softcap=acfg.softcap, causal=True,
-                      window=acfg.window, prefix_len=acfg.prefix_len)
+        calls, kernel = {}, k3.flash_attention
+
+        def recording(q, k, v, **kw):
+            calls.setdefault(call_mask(kw), (q, k, v, kw))
+            return kernel(q, k, v, **kw)
+
+        # the wrapper counts on the module's name, this function, while it
+        # stands in: those counts are not the run's
+        recording.launches, recording.mask_launches = 0, {"window": 0, "prefix": 0}
+        k3.flash_attention = recording
+        try:
+            model.prefill(toks, run.max_len, torch.float32)
+        finally:
+            k3.flash_attention = kernel
+        for mask, (q, k, v, kw) in calls.items():
             got = k3.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             want = k3.flash_attention_ref(q, k, v, **kw)
@@ -1633,9 +1813,9 @@ class Smoke:
             if not ratio <= 1.0:
                 raise AssertionError(f"K3 vs plain at {run.arch}'s main shapes ({mask}): "
                                      f"max |err| {err:.3e}, {ratio:.3f} of the bound")
-            lib_name, lib_fn = library_attention(q, k, v, scale=acfg.scale,
-                                                 softcap=acfg.softcap, window=acfg.window,
-                                                 prefix_len=acfg.prefix_len)
+            lib_name, lib_fn = library_attention(q, k, v, scale=kw["scale"],
+                                                 softcap=kw["softcap"], window=kw["window"],
+                                                 prefix_len=kw["prefix_len"])
             lib_err, lib_ratio = k3_error(q, k, v, lib_fn(), want, kw)
             if not lib_ratio <= 1.0:
                 raise AssertionError(f"{lib_name} vs K3's plain version at {run.arch}'s "
@@ -1644,22 +1824,22 @@ class Smoke:
             del got, want
             s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
             shape = (f"{run.arch} {mask} S={s} H={hq} KVH={k.shape[2]} hd={hd} "
-                     f"{q.dtype}" + (f" window={acfg.window}" if acfg.window else "")
-                     + (f" prefix={acfg.prefix_len}" if acfg.prefix_len else "")
-                     + (f" softcap={acfg.softcap}" if acfg.softcap else ""))
+                     f"{q.dtype}" + (f" window={kw['window']}" if kw["window"] else "")
+                     + (f" prefix={kw['prefix_len']}" if kw["prefix_len"] else "")
+                     + (f" softcap={kw['softcap']}" if kw["softcap"] else ""))
             ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50,
                          label=f"K3 {shape}")
             plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
                                label="K3 plain")
             pos = torch.arange(s, device=self.dev)
-            visible = k3.visible_mask(pos, pos, window=acfg.window,
-                                      prefix_len=acfg.prefix_len)
+            visible = k3.visible_mask(pos, pos, window=kw["window"],
+                                      prefix_len=kw["prefix_len"])
             lib_ms = time_ms(lib_fn, 50, label=lib_name)
             flops = 4.0 * float(visible.sum()) * hd * hq        # the visible pairs
             nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
             bms, by = bound(nbytes, flops, q.dtype)
-            if entry == mask:
-                key = "flash_attention" + ("" if mask == "causal" else f"_{mask}")
+            if mask == model_mask(cfg):
+                key = kernel_entry(cfg)
                 self.kernels[key] = {
                     "name": key, "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
                     "replaces": "src/repro/kernels/flash.py:70",
@@ -1674,6 +1854,8 @@ class Smoke:
                 f"{lib_ratio:.3f} of K3's bound; K3 takes {ms / lib_ms:.2f}x "
                 f"{lib_name}'s time)")
             del q, k, v, visible, lib_fn
+        calls.clear()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1705,6 +1887,7 @@ def main() -> int:
     log(f"[sim] phase in {time.perf_counter() - t1:.1f} s")
     smoke.check_k3_matrix()
     smoke.check_k3_masks()
+    smoke.check_k3_hd80()
     for run in SERVE_RUNS:
         t1 = time.perf_counter()
         smoke.serve_main(run)

@@ -21,13 +21,17 @@ imports it:
   ``ensemble.f.cpu().numpy()`` is the port ensemble's state in that
   layout.
 * :func:`lm_params_from_reference` takes the reference ``CausalLM``'s
-  parameter pytree as nested dicts of numpy arrays (``stack.layers.*``
-  stacked over the L layers, or gemma2's ``stack.pairs.{local,global}.*``
-  over the L/2 pairs) and returns a port :class:`CausalLM` holding them;
-  :func:`lm_params_to_reference` does the reverse, byte for byte.
+  parameter pytree as nested dicts of numpy arrays and returns a port
+  :class:`CausalLM` holding them; :func:`lm_params_to_reference` does the
+  reverse, byte for byte.  The stacked groups of the reference's
+  ``stack`` (``layers`` over the L layers, dense or rwkv6; gemma2's
+  ``pairs``; the moe family's ``dense_layers`` and ``moe_layers``;
+  zamba2's ``mamba`` and its per-group ``lora``) are indexed on their
+  leading axis; zamba2's ``shared`` block is one copy.
 * :func:`lm_cache_from_reference` / :func:`lm_cache_to_reference` carry a
-  KV cache across: ``{"layers": {"k", "v"}}``, (L, B, T, KVH, hd), or
-  gemma2's ``{"local": {"k", "v"}, "global": {"k", "v"}}``.
+  decode cache across, a tree of nested dicts of any shape (k/v groups,
+  rwkv6's ``wkv``/``tshift1``/``tshift2``, zamba2's ``ssm``/``conv``/
+  ``attn_kv``).
 """
 from __future__ import annotations
 
@@ -122,14 +126,17 @@ def ensemble_from_reference(f_np: np.ndarray, ensemble) -> None:
 # LM parameters and caches
 # --------------------------------------------------------------------------
 def _reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
-    """The reference pytree path of a port parameter name, and the layer
-    (or pair) index into its stacked (L, ...) array (None outside the
-    stack)."""
+    """The reference pytree path of a port parameter name, and the index
+    into its stacked (n, ...) array (None for an unstacked one)."""
     if name.startswith("layers."):
-        _, layer, *rest = name.split(".")
-        if rest[0] in ("local", "global"):       # a Pair's blocks
-            return ("stack", "pairs", *rest), int(layer)
-        return ("stack", "layers", *rest), int(layer)
+        _, part, *rest = name.split(".")
+        if part.isdigit():                       # one list of layers
+            if rest[0] in ("local", "global"):   # a Pair's blocks
+                return ("stack", "pairs", *rest), int(part)
+            return ("stack", "layers", *rest), int(part)
+        if part == "shared":                     # zamba2's one shared block
+            return ("stack", "shared", *rest), None
+        return ("stack", part, *rest[1:]), int(rest[0])   # a named group
     return {"embed": ("embed", "table"), "final_norm": ("final_norm",),
             "lm_head": ("lm_head", "w")}[name], None
 
@@ -198,20 +205,23 @@ def lm_params_to_reference(model: CausalLM) -> dict:
     return out
 
 
+def _map_tree(fn, tree):
+    return ({k: _map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict)
+            else fn(tree))
+
+
 def lm_cache_from_reference(cache_np: dict, device=None) -> dict:
-    """A reference KV cache (numpy) as the port's, on ``device`` (None: the
-    card)."""
+    """A reference decode cache (nested dicts of numpy arrays) as the
+    port's, on ``device`` (None: the card)."""
     dev = resolve_device(device)
-    return {group: {k: _tensor(kv[k]).to(dev) for k in ("k", "v")}
-            for group, kv in cache_np.items()}
+    return _map_tree(lambda a: _tensor(a).to(dev), cache_np)
 
 
 def lm_cache_to_reference(cache: dict) -> dict:
-    """The port's KV cache as numpy; a bfloat16 cache comes back widened
+    """The port's decode cache as numpy; bfloat16 leaves come back widened
     to float32 (numpy has no bfloat16)."""
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return {group: {k: arr(kv[k]) for k in ("k", "v")}
-            for group, kv in cache.items()}
+    return _map_tree(arr, cache)

@@ -42,9 +42,12 @@
 //   previous, and the two consumer warpgroups taking turns at the tensor
 //   cores.  p is rounded to bfloat16 for P V (the row sum l keeps the
 //   float32 values), as FlashAttention-3 and the reference's dense path do.
-// - bfloat16, hd in {16, 32}: mma.sync tensor-core products, four warps per
-//   64-row query block, synchronous K/V tile loads (namespace tc); p.v in
-//   TF32.
+// - bfloat16, hd in {16, 32, 80}: mma.sync tensor-core products, four warps
+//   per 64-row query block, synchronous K/V tile loads (namespace tc); p.v
+//   in TF32.  hd 80 is zamba2's shared attention block: a 160-byte row fits
+//   neither the Hopper kernel's 128-byte swizzled TMA chunks nor its wgmma
+//   widths, while this kernel's 16-byte row chunks (10 a row), its 16-wide
+//   k-steps (5) and 8-wide output tiles (10) all divide 80.
 // - float32 (whose 1e-5 tolerance rules out TF32), and hd = 8: the products
 //   on the float32 FMA pipes (67 TFLOP/s): a 64 x 64 logits tile per block
 //   of 128 threads, each thread holding an 8 x 4 block of logits and an
@@ -270,9 +273,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16, hd in {16, 32}: the two products on the tensor cores (mma.sync).
+// bfloat16, hd in {16, 32, 80}: the two products on the tensor cores
+// (mma.sync).
 //
-// Four warps per 64-row query block, 16 rows each.  Logits: m16n8k16 bf16
+// Four warps per 64-row query block, 16 rows each.  Rows of Q, K and V sit
+// in shared memory at a stride of HD + 8 bf16 (16 bytes of pad): at hd 80
+// that is 44 words, so the 8 row groups of a fragment load start 12 banks
+// apart and its 32 lanes hit 32 banks.  Logits: m16n8k16 bf16
 // products of Q and K (exact products, float32 sums), then scaled in
 // float32.  Softmax in float32 on the accumulator fragments.  P @ V:
 // m16n8k8 TF32 products, so p keeps 10 mantissa bits (bf16 would keep 7);
@@ -1104,14 +1111,14 @@ int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 with hd >= 64 takes the Hopper kernel, with hd 16 or 32 the
-// mma.sync kernel; float32 (whose tolerance TF32 would not meet) and hd = 8
-// the FMA kernel.
+// bfloat16 with hd 64, 128 or 256 takes the Hopper kernel, with hd 16, 32
+// or 80 the mma.sync kernel; float32 (whose tolerance TF32 would not meet)
+// and hd = 8 the FMA kernel.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Tk, int H, int KVH, float scale, bool causal, bool softcap,
            float cap, int window, int prefix, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 64)
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && (HD == 64 || HD == 128 || HD == 256))
     return hopper::launch<HD>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
                               window, prefix, stream);
   else
@@ -1146,6 +1153,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int
     case 64:
       return launch<T, 64>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
                            window, prefix, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
+                           window, prefix, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
                             window, prefix, stream);
@@ -1161,7 +1171,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int
 
 // q, out: (B, S, H, hd); k, v: (B, T, KVH, hd); contiguous, one dtype
 // (0 = float32, 2 = bfloat16); H a multiple of KVH; hd in {8, 16, 32, 64,
-// 128, 256}.  softcap <= 0 means none.  With causal != 0, window > 0 keeps
+// 80, 128, 256}.  softcap <= 0 means none.  With causal != 0, window > 0 keeps
 // only keys t > s - window and prefix > 0 opens the prefix's square
 // (causal_visible); window 0 and prefix 0 mean none, and both are ignored
 // when causal is 0.  Returns cudaGetLastError() after the launch (0 on

@@ -23,8 +23,9 @@ it runs :func:`flash_attention_ref`.  In bfloat16 (hd >= 16) the kernel
 runs both products on the tensor cores: q.k as exact bf16 products summed
 in float32, then scaled in float32; for p.v, at hd 64, 128 and 256 (the
 Hopper kernel: TMA, wgmma, warp-specialised) p is rounded to bfloat16 as
-the reference's dense path does, at hd 16 and 32 (the mma.sync kernel) to
-TF32.  In float32, and at hd 8, it computes in float32 throughout.
+the reference's dense path does, at hd 16, 32 and 80 (the mma.sync kernel;
+hd 80 is zamba2's shared attention block) to TF32.  In float32, and at hd
+8, it computes in float32 throughout.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -5,9 +5,13 @@
         --requests 8 --slots 4 --prompt-len 2048 --max-new 32 --max-len 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --requests 8 --slots 4 --prompt-len 6144 --max-new 32 --max-len 8192
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --requests 8 --slots 4 --prompt-len 2048 --max-new 32 --max-len 4096
 
-    # the smoke config on the CPU (plain kernel versions)
+    # a smoke config on the CPU (plain kernel versions); any arch but
+    # musicgen-large (its audio family is not ported)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 
 Prompts are tokens only, as in the reference's launcher: paligemma's
 first 256 positions (its ``prefix_tokens``) then attend bidirectionally
@@ -15,8 +19,9 @@ over prompt tokens, with no image embeddings.  After a warm-up prefill
 and decode step at the timed shapes (kernel build, weight copies; its
 host time is printed apart), prefill and decode are timed apart by the
 engine: CUDA events on the card, the host clock on the CPU.  The run prints both rates in tokens/s, the device they were
-taken on, and the launches of kernel K3 in each phase (one per layer per
-prefilled request, none in decode).
+taken on, and the launches of kernel K3 in each phase (one per attention
+layer per prefilled request: every layer of the dense and moe families,
+zamba2's shared block once per group, none for rwkv6; none in decode).
 """
 from __future__ import annotations
 

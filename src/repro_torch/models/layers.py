@@ -41,9 +41,12 @@ class CastParams(nn.Module):
             cache[(name, dtype)] = p.to(dtype)
         return cache[(name, dtype)]
 
-    def weights(self, dtype: torch.dtype) -> dict[str, torch.Tensor]:
-        """This module's own parameters by name, in ``dtype``."""
-        return {name: self.cast(name, dtype) for name in self._parameters}
+    def weights(self, dtype: torch.dtype, keep=()) -> dict[str, torch.Tensor]:
+        """This module's own parameters by name, in ``dtype``; those named
+        in ``keep`` as they are (the reference reads them in float32 from
+        the parameter dtype, not through the compute dtype)."""
+        return {name: p if name in keep else self.cast(name, dtype)
+                for name, p in self._parameters.items()}
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,

@@ -1,8 +1,10 @@
 """CausalLM — the model API of the server (the reference's
-``repro.models.model.CausalLM`` for the dense and vlm families).
+``repro.models.model.CausalLM`` for the dense, vlm, moe, ssm and hybrid
+families; the audio family is not ported).
 
     model = CausalLM(cfg)                        # on the card; seed 0
-    logits, aux = model.forward(tokens)          # (B, S) -> (B, S, V) f32
+    logits, aux = model.forward(tokens)          # (B, S) -> (B, S, V) f32;
+                                                 # aux: the MoE layers' loss
     logits, cache = model.prefill(tokens, max_len)       # last-token logits
     logits, cache = model.decode_step(tokens, cache, index)
 
@@ -28,6 +30,7 @@ from .transformer import (
     check_supported,
     init_cache,
     init_stack,
+    reset_stack,
     stack_decode,
     stack_forward,
     stack_prefill,
@@ -68,8 +71,7 @@ class CausalLM(CastParams):
         shapes and scales are the reference's; the draws are not."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         param_init(self.embed, gen)
-        for block in self.layers:
-            block.reset_parameters(gen)
+        reset_stack(self.layers, gen)
         self.final_norm.fill_(0.0 if self.cfg.post_norms else 1.0)
         if not self.cfg.tie_embeddings:
             param_init(self.lm_head, gen)

@@ -1,23 +1,39 @@
-"""Decoder stack of the dense and vlm families (the reference's
-``repro.models.transformer`` for ``family in ("dense", "vlm")``), with
-global attention or gemma2's local/global alternation.
+"""Decoder stacks of every ported family (the reference's
+``repro.models.transformer``): dense and vlm (global attention or gemma2's
+local/global alternation), moe, ssm (rwkv6) and hybrid (zamba2).
 
-The reference scans one stacked (L, ...) parameter pytree with
-``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
-Python loop.  With ``layer_pattern == "local_global"`` each entry is a
-:class:`Pair` of a local (windowed) and a global :class:`DenseBlock`, the
-reference's ``stack["pairs"]`` superlayer, under its names ``local`` and
-``global``.  The KV cache keeps the reference's stacked layout,
-``{"layers": {"k": (L, B, T, KVH, hd), "v": ...}}``, or for pairs
-``{"local": {"k": (L/2, B, min(T, window), KVH, hd), ...}, "global":
-{"k": (L/2, B, T, KVH, hd), ...}}`` with the local layers' k/v in a ring
-(position p at slot p mod its length), so a serving slot is one index of
-axis 1 and ``convert`` carries a cache across as it is.  A vlm's prefix
-(``prefix_len``) attends bidirectionally in forward and prefill, as in
-the reference; decode is causal.  Other families raise
-``NotImplementedError``.
+The reference scans stacked (L, ...) parameter pytrees with ``lax.scan``;
+here the layers are ``nn.ModuleList``s and the scan is a Python loop.
+``init_stack`` gives, by family:
+
+* dense/vlm: a list of :class:`DenseBlock`, or with ``layer_pattern ==
+  "local_global"`` of :class:`Pair` (a local, windowed block and a global
+  one, the reference's ``stack["pairs"]`` superlayer);
+* moe: ``{"dense_layers": first_dense DenseBlocks, "moe_layers": the other
+  layers as MoEBlocks}`` (no ``dense_layers`` when ``first_dense`` is 0);
+* ssm: a list of :class:`~repro_torch.models.rwkv6.RWKVLayer`;
+* hybrid: ``{"mamba": L MambaLayers, "shared": one SharedAttn, "lora":
+  L / attn_every LoRA sets}``; mamba layer i belongs to group i //
+  attn_every, and the shared block runs after each group's last layer
+  with that group's LoRA deltas folded into its q/k/v weights.
+
+Caches keep the reference's stacked layouts, so a serving slot is one
+index of axis 1 of every leaf and ``convert`` carries a cache across as it
+is: ``{"layers": kv}`` or ``{"local": ring kv, "global": kv}`` (dense),
+``{"dense_layers": kv, "moe_layers": kv}`` (moe), ``{"wkv": (L, B, H, K,
+V) float32, "tshift1", "tshift2": (L, B, D)}`` (ssm), ``{"ssm": (L, B,
+nh, N, P) float32, "conv": (L, B, K-1, C), "attn_kv": kv over the
+groups}`` (hybrid), where kv is ``{"k", "v"}`` of (n, B, T, KVH, hd) and
+gemma2's local ring holds position p at slot p mod its length.  Prefill
+returns the states as the reference does (the recurrent ones in float32
+and the compute dtype, the k/v in the cache dtype); decode writes each
+layer's new state into the cache it is given.  A vlm's prefix
+(``prefix_len``) attends bidirectionally in forward and prefill; decode
+is causal.  The audio family raises ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -33,23 +49,32 @@ from .attention import (
     init_kv_cache,
 )
 from .config import ModelConfig
-from .layers import empty_param, rms_norm
+from .layers import CastParams, empty_param, param_init, rms_norm
+from .mamba2 import Mamba2
 from .mlp import MLP
+from .moe import MoE
+from .rwkv6 import RWKVLayer
+
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+LORA_RANK = 128      # zamba2's per-invocation adapter rank
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless the port has this config's family and layer pattern."""
-    if cfg.family not in ("dense", "vlm") or cfg.layer_pattern not in (
-            "global", "local_global"):
+    patterns = ("global", "local_global") if cfg.family in ("dense", "vlm") else ("global",)
+    if cfg.family not in FAMILIES or cfg.layer_pattern not in patterns:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with layer pattern "
             f"{cfg.layer_pattern!r} is not ported yet; repro_torch serves the "
-            "dense and vlm families with global or local/global attention "
-            "(ROADMAP.md §1 queues MoE, RWKV6, Mamba2/zamba2 and the audio "
-            "stub)")
+            "dense and vlm families with global or local/global attention and "
+            "the moe, ssm (rwkv6) and hybrid (zamba2) families (ROADMAP.md §1 "
+            "queues the audio stub)")
     if cfg.layer_pattern == "local_global" and cfg.n_layers % 2:
         raise ValueError(f"{cfg.name}: local/global pairs need an even layer "
                          f"count, got {cfg.n_layers}")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} mamba layers do not split "
+                         f"into groups of {cfg.attn_every}")
 
 
 def attn_cfg_for(cfg: ModelConfig, window: int | None, prefix_len: int = 0) -> AttnConfig:
@@ -174,16 +199,191 @@ def _ring_from_full(cache: dict, s: int, local_len: int) -> dict:
     return {"k": fold(cache["k"]), "v": fold(cache["v"])}
 
 
+class MoEBlock(nn.Module):
+    """Attention + the MoE FFN, with pre-norms (the reference's
+    ``moe_block``); its forward also returns the layer's aux loss."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        self.attn = Attention(attn_cfg_for(cfg, None), **kw)
+        self.moe = MoE(d, cfg.d_ff, cfg.moe, cfg.mlp, **kw)
+        self.norm_attn = empty_param(d, **kw)
+        self.norm_mlp = empty_param(d, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        self.moe.reset_parameters(generator)
+        self.norm_attn.fill_(1.0)
+        self.norm_mlp.fill_(1.0)
+
+    def _residual(self, x, attend):
+        eps = self.cfg.norm_eps
+        x = x + attend(rms_norm(x, self.norm_attn, eps), self.attn.weights(x.dtype))
+        m, aux = self.moe(rms_norm(x, self.norm_mlp, eps))
+        return x + m, aux
+
+    def forward(self, x, acfg: AttnConfig, positions):
+        return self._residual(x, lambda h, p: attention(p, h, acfg, positions))
+
+    def prefill(self, x, acfg: AttnConfig, positions, cache: dict):
+        return self._residual(
+            x, lambda h, p: attention_prefill(p, h, acfg, positions, cache))[0]
+
+    def decode(self, x, cache: dict, index: int, acfg: AttnConfig):
+        return self._residual(
+            x, lambda h, p: attention_decode(p, h, cache, index, acfg))[0]
+
+
+class MambaLayer(nn.Module):
+    """A Mamba2 block under its pre-norm, with the residual."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.ssm = Mamba2(cfg.d_model, cfg.ssm, device=device, dtype=dtype)
+        self.norm = empty_param(cfg.d_model, device=device, dtype=dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ssm.reset_parameters(generator)
+        self.norm.fill_(1.0)
+
+    def forward(self, x, state=None):
+        y, new_state = self.ssm(rms_norm(x, self.norm, self.cfg.norm_eps), state)
+        return x + y, new_state
+
+
+class LoraDelta(CastParams):
+    """One projection's adapter: ``a`` (2 d, r) and ``b`` (r, out)."""
+
+    def __init__(self, d_in: int, d_out: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.a = empty_param(d_in, LORA_RANK, device=device, dtype=dtype)
+        self.b = empty_param(LORA_RANK, d_out, device=device, dtype=dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """``a`` normal x 0.02, ``b`` zeros (the reference's init: the
+        adapters start as no change)."""
+        param_init(self.a, generator)
+        self.b.zero_()
+
+    def delta(self, dtype: torch.dtype) -> torch.Tensor:
+        return self.cast("a", dtype) @ self.cast("b", dtype)
+
+
+class Lora(nn.ModuleDict):
+    """One invocation's adapters of the shared block's q, k and v."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        d2, kw = 2 * cfg.d_model, dict(device=device, dtype=dtype)
+        super().__init__({"q": LoraDelta(d2, cfg.n_heads * cfg.hd, **kw),
+                          "k": LoraDelta(d2, cfg.n_kv_heads * cfg.hd, **kw),
+                          "v": LoraDelta(d2, cfg.n_kv_heads * cfg.hd, **kw)})
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for delta in self.values():
+            delta.reset_parameters(generator)
+
+
+class SharedAttn(nn.Module):
+    """zamba2's single shared attention + MLP block.  Its input is
+    concat([x, x0]) (x0 the embedding stream), so q/k/v read 2 d_model and
+    ``wo`` maps back to d_model; each invocation folds its LoRA deltas into
+    q/k/v in the compute dtype (the reference's ``_lora_weights``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        self.attn = Attention(dataclasses.replace(attn_cfg_for(cfg, None), d_model=2 * d),
+                              **kw)
+        self.attn.wo = empty_param(cfg.n_heads * cfg.hd, d, **kw)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp, **kw)
+        self.norm_attn = empty_param(2 * d, **kw)
+        self.norm_mlp = empty_param(d, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        self.norm_attn.fill_(1.0)
+        self.norm_mlp.fill_(1.0)
+
+    def _residual(self, x, x0, lora: Lora, attend):
+        eps = self.cfg.norm_eps
+        h2 = rms_norm(torch.cat([x, x0], dim=-1), self.norm_attn, eps)
+        p = self.attn.weights(h2.dtype)
+        for name in ("q", "k", "v"):
+            p["w" + name] = p["w" + name] + lora[name].delta(h2.dtype)
+        x = x + attend(h2, p)
+        return x + self.mlp(rms_norm(x, self.norm_mlp, eps))
+
+    def forward(self, x, x0, lora: Lora, acfg: AttnConfig, positions):
+        return self._residual(x, x0, lora,
+                              lambda h, p: attention(p, h, acfg, positions))
+
+    def prefill(self, x, x0, lora: Lora, acfg: AttnConfig, positions, cache: dict):
+        return self._residual(
+            x, x0, lora, lambda h, p: attention_prefill(p, h, acfg, positions, cache))
+
+    def decode(self, x, x0, lora: Lora, cache: dict, index: int, acfg: AttnConfig):
+        return self._residual(
+            x, x0, lora, lambda h, p: attention_decode(p, h, cache, index, acfg))
+
+
 # ==========================================================================
 # Stack: init + forward + prefill + decode
 # ==========================================================================
-def init_stack(cfg: ModelConfig, *, device=None, dtype=torch.float32) -> nn.ModuleList:
+def init_stack(cfg: ModelConfig, *, device=None, dtype=torch.float32) -> nn.Module:
+    """The family's layers (see the module docstring)."""
     check_supported(cfg)
+    kw = dict(device=device, dtype=dtype)
+    if cfg.family == "moe":
+        parts = {"moe_layers": nn.ModuleList(
+            MoEBlock(cfg, **kw) for _ in range(cfg.n_layers - cfg.first_dense))}
+        if cfg.first_dense:
+            parts = {"dense_layers": nn.ModuleList(
+                DenseBlock(cfg, **kw) for _ in range(cfg.first_dense)), **parts}
+        return nn.ModuleDict(parts)
+    if cfg.family == "ssm":
+        return nn.ModuleList(RWKVLayer(cfg.d_model, cfg.d_ff, cfg.ssm.head_dim,
+                                       cfg.norm_eps, **kw)
+                             for _ in range(cfg.n_layers))
+    if cfg.family == "hybrid":
+        return nn.ModuleDict({
+            "mamba": nn.ModuleList(MambaLayer(cfg, **kw) for _ in range(cfg.n_layers)),
+            "shared": SharedAttn(cfg, **kw),
+            "lora": nn.ModuleList(Lora(cfg, **kw) for _ in range(_groups(cfg)))})
     if cfg.layer_pattern == "local_global":
-        return nn.ModuleList(Pair(cfg, device=device, dtype=dtype)
-                             for _ in range(cfg.n_layers // 2))
-    return nn.ModuleList(DenseBlock(cfg, device=device, dtype=dtype)
-                         for _ in range(cfg.n_layers))
+        return nn.ModuleList(Pair(cfg, **kw) for _ in range(cfg.n_layers // 2))
+    return nn.ModuleList(DenseBlock(cfg, **kw) for _ in range(cfg.n_layers))
+
+
+def reset_stack(layers: nn.Module, generator: torch.Generator) -> None:
+    """Draw every layer's parameters from ``generator``."""
+    parts = layers.values() if isinstance(layers, nn.ModuleDict) else [layers]
+    for part in parts:
+        for block in (part if isinstance(part, nn.ModuleList) else [part]):
+            block.reset_parameters(generator)
+
+
+def _groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
+def _group_layers(cfg: ModelConfig, g: int) -> range:
+    """The mamba layers of group ``g`` (the shared block follows them)."""
+    return range(g * cfg.attn_every, (g + 1) * cfg.attn_every)
+
+
+def _dense_layers(layers: nn.ModuleDict):
+    return layers["dense_layers"] if "dense_layers" in layers else ()
 
 
 def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
@@ -191,19 +391,36 @@ def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
             attn_cfg_for(cfg, None, prefix_len))
 
 
-def stack_forward(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
+def stack_forward(layers: nn.Module, x, cfg: ModelConfig, positions,
                   prefix_len: int = 0):
-    """Run the full layer stack.  x: (B, S, D).  Returns (x, aux_loss)."""
-    if cfg.layer_pattern == "local_global":
+    """Run the full layer stack.  x: (B, S, D).  Returns (x, aux_loss): the
+    sum of the MoE layers' aux losses, else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    acfg = attn_cfg_for(cfg, None, prefix_len)
+    if cfg.family == "moe":
+        for block in _dense_layers(layers):
+            x = block(x, acfg, positions)
+        for block in layers["moe_layers"]:
+            x, a = block(x, acfg, positions)
+            aux = aux + a
+    elif cfg.family == "ssm":
+        for layer in layers:
+            x, _ = layer(x)
+    elif cfg.family == "hybrid":
+        x0 = x
+        for g, lora in enumerate(layers["lora"]):
+            for i in _group_layers(cfg, g):
+                x, _ = layers["mamba"][i](x)
+            x = layers["shared"](x, x0, lora, acfg, positions)
+    elif cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
         for pair in layers:
             x = pair["local"](x, a_loc, positions)
             x = pair["global"](x, a_glo, positions)
     else:
-        acfg = attn_cfg_for(cfg, None, prefix_len)
         for block in layers:
             x = block(x, acfg, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _local_len(cfg: ModelConfig, max_len: int) -> int:
@@ -215,11 +432,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     """Decode state for one-token serve steps, stacked over layers."""
     check_supported(cfg)
 
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     def kv(n, length):
         shape = (n, batch, length, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"k": zeros(*shape), "v": zeros(*shape)}
 
+    if cfg.family == "moe":
+        out = {"moe_layers": kv(cfg.n_layers - cfg.first_dense, max_len)}
+        if cfg.first_dense:
+            out["dense_layers"] = kv(cfg.first_dense, max_len)
+        return out
+    if cfg.family == "ssm":
+        d, hd, n = cfg.d_model, cfg.ssm.head_dim, cfg.n_layers
+        return {"wkv": zeros(n, batch, d // hd, hd, hd, dt=torch.float32),
+                "tshift1": zeros(n, batch, d), "tshift2": zeros(n, batch, d)}
+    if cfg.family == "hybrid":
+        sc = cfg.ssm
+        d_inner = sc.expand * cfg.d_model
+        return {"ssm": zeros(cfg.n_layers, batch, d_inner // sc.head_dim, sc.d_state,
+                             sc.head_dim, dt=torch.float32),
+                "conv": zeros(cfg.n_layers, batch, sc.d_conv - 1, d_inner + 2 * sc.d_state),
+                "attn_kv": kv(_groups(cfg), max_len)}
     if cfg.layer_pattern == "local_global":
         half = cfg.n_layers // 2
         return {"local": kv(half, _local_len(cfg, max_len)),
@@ -228,14 +463,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _layer_cache(group: dict, i: int) -> dict:
-    """Layer ``i``'s k/v (views) of one stacked group of the cache."""
-    return {"k": group["k"][i], "v": group["v"][i]}
+    """Layer ``i``'s entries (views) of one stacked group of the cache."""
+    return {name: leaf[i] for name, leaf in group.items()}
 
 
-def stack_prefill(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
+def _stacked(states: list[dict]) -> dict:
+    """Per-layer state dicts stacked on a new leading axis."""
+    return {name: torch.stack([st[name] for st in states]) for name in states[0]}
+
+
+def stack_prefill(layers: nn.Module, x, cfg: ModelConfig, positions,
                   max_len: int, cache_dtype=torch.bfloat16, prefix_len: int = 0):
-    """Forward over the prompt, returning (x, decode cache at ``max_len``)."""
+    """Forward over the prompt, returning (x, decode cache at ``max_len``):
+    k/v in ``cache_dtype``; rwkv6's and Mamba2's states as their layers
+    leave them (float32 recurrent states, the token-shift carries and the
+    conv inputs in the compute dtype), as the reference's prefill does."""
+    acfg = attn_cfg_for(cfg, None, prefix_len)
+    if cfg.family == "ssm":
+        states = []
+        for layer in layers:
+            x, st = layer(x)
+            states.append(st)
+        return x, _stacked(states)
+    if cfg.family == "hybrid":
+        x0, states = x, []
+        cache = {"attn_kv": init_cache(cfg, x.shape[0], max_len, cache_dtype,
+                                       x.device)["attn_kv"]}
+        for g, lora in enumerate(layers["lora"]):
+            for i in _group_layers(cfg, g):
+                x, st = layers["mamba"][i](x, "final")
+                states.append(st)
+            x = layers["shared"].prefill(x, x0, lora, acfg, positions,
+                                         _layer_cache(cache["attn_kv"], g))
+        return x, {**_stacked(states), **cache}
     cache = init_cache(cfg, x.shape[0], max_len, cache_dtype, x.device)
+    if cfg.family == "moe":
+        for name, group in (("dense_layers", _dense_layers(layers)),
+                            ("moe_layers", layers["moe_layers"])):
+            for i, block in enumerate(group):
+                x = block.prefill(x, acfg, positions, _layer_cache(cache[name], i))
+        return x, cache
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
         b, s = x.shape[:2]
@@ -249,16 +516,44 @@ def stack_prefill(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
             x = pair["global"].prefill(x, a_glo, positions,
                                        _layer_cache(cache["global"], i))
         return x, cache
-    acfg = attn_cfg_for(cfg, None, prefix_len)
     for i, block in enumerate(layers):
         x = block.prefill(x, acfg, positions, _layer_cache(cache["layers"], i))
     return x, cache
 
 
-def stack_decode(layers: nn.ModuleList, x, cache: dict, index: int,
+def _write(cache: dict, i: int, state: dict) -> None:
+    """Layer ``i``'s new state into the stacked cache, in its dtypes."""
+    for name, value in state.items():
+        cache[name][i] = value
+
+
+def stack_decode(layers: nn.Module, x, cache: dict, index: int,
                  cfg: ModelConfig):
     """One-token decode through the stack.  x: (B, 1, D); ``cache`` is
-    updated in place and returned."""
+    updated in place and returned.  The recurrent states ignore
+    ``index``."""
+    acfg = attn_cfg_for(cfg, None)
+    if cfg.family == "moe":
+        for name, group in (("dense_layers", _dense_layers(layers)),
+                            ("moe_layers", layers["moe_layers"])):
+            for i, block in enumerate(group):
+                x = block.decode(x, _layer_cache(cache[name], i), index, acfg)
+        return x, cache
+    if cfg.family == "ssm":
+        for i, layer in enumerate(layers):
+            x, st = layer(x, _layer_cache(cache, i))
+            _write(cache, i, st)
+        return x, cache
+    if cfg.family == "hybrid":
+        x0 = x
+        for g, lora in enumerate(layers["lora"]):
+            for i in _group_layers(cfg, g):
+                x, st = layers["mamba"][i](x, {"ssm": cache["ssm"][i],
+                                               "conv": cache["conv"][i]})
+                _write(cache, i, st)
+            x = layers["shared"].decode(x, x0, lora, _layer_cache(cache["attn_kv"], g),
+                                        index, acfg)
+        return x, cache
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg)
         for i, pair in enumerate(layers):
@@ -267,7 +562,6 @@ def stack_decode(layers: nn.ModuleList, x, cache: dict, index: int,
             x = pair["global"].decode(x, _layer_cache(cache["global"], i), index,
                                       a_glo)
         return x, cache
-    acfg = attn_cfg_for(cfg, None)
     for i, block in enumerate(layers):
         x = block.decode(x, _layer_cache(cache["layers"], i), index, acfg)
     return x, cache

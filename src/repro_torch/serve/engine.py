@@ -4,13 +4,16 @@
 Requests are packed into FIXED slots: a free slot is refilled from the
 queue at the next prefill opportunity, so the decode batch shape never
 changes.  Prefill runs per slot at batch 1 and every leaf of its cache
-(``layers``, or gemma2's ``local`` ring and ``global`` k/v) is spliced
-into the batch cache at the slot's index of axis 1.
+(k/v groups, rwkv6's recurrent state and token-shift carries, zamba2's
+ssm/conv states; every leaf stacked over layers on axis 0) is spliced
+into the batch cache at the slot's index of axis 1, in the batch cache's
+dtype.
 
 All occupied slots decode in lockstep at one index, the largest position
 among them (the reference's simple baseline, mirrored here and recorded as
 fault F4 in ROADMAP.md §3): a slot whose prompt is shorter writes its next
-token's k/v further along than its own position.
+token's k/v further along than its own position.  The recurrent states
+take no index.
 
 The engine times its two phases on the device it runs on: CUDA events on
 the card, the host clock on the CPU (``phase_ms``, with ``tokens``), and

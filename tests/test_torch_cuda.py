@@ -14,7 +14,11 @@ attention) on unit-normal inputs, element by element within
 in bfloat16 2**-7 (|plain| + P |v|), one bf16 ulp of each output plus
 K3's bf16 rounding of p in p.v, bounded by the same attention over |v|.
 The bf16 cases at hd 64/128/256 run the Hopper kernel (128-row blocks,
-128-key tiles, 64 at hd 256), so the shapes straddle those edges too.
+128-key tiles, 64 at hd 256), so the shapes straddle those edges too; hd
+80 (zamba2) runs the mma.sync kernel in bf16 (64-row blocks, 64-key
+tiles) and the FMA kernel in float32.  The moe, ssm and hybrid smoke
+models on the card against the same weights on the CPU: greedy tokens
+equal, prefill logits within 1e-4.
 """
 import numpy as np
 import pytest
@@ -489,3 +493,82 @@ def test_local_and_prefix_models_serve_the_cpu_tokens(dev, arch):
         launches = eng.k3_launches
     assert out["cpu"] == out["cuda"]
     assert launches == {"prefill": len(prompts) * cfg.n_layers, "decode": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(1, None), (63, None), (64, None), (65, None),
+                                      (65, 64), (129, 1), (200, 63), (2048, 1000)])
+def test_k3_hd80_block_edges(dev, dtype, s, window):
+    """hd 80 (zamba2's shared block): the mma.sync kernel in bf16, the FMA
+    kernel in float32, at lengths one short of, on and past their 64-row
+    blocks and 64-key tiles, zamba2's head counts (H = KVH), causal and
+    not."""
+    for causal in (True, False):
+        w = window if causal else None
+        q, k, v = _qkv(dev, dtype, 1, s, s, 32, 32, 80, seed=s)
+        got = k3.flash_attention(q, k, v, causal=causal, window=w)
+        torch.cuda.synchronize()
+        want = k3.flash_attention_ref(q, k, v, causal=causal, window=w)
+        bound = k3.error_bound(q, k, v, want, causal=causal, window=w)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def _card_copy(cfg, cpu_model, dev):
+    """The CPU model's weights on the card (a CUDA generator draws other
+    numbers than the CPU's)."""
+    from repro_torch import convert
+
+    return convert.lm_params_from_reference(convert.lm_params_to_reference(cpu_model),
+                                            cfg, device=dev)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "zamba2-2.7b", "rwkv6-3b"])
+def test_moe_ssm_hybrid_models_serve_the_cpu_tokens(dev, arch):
+    """The smoke models, float32, served on the card (K3 for deepseek's
+    layers and zamba2's shared block) give the CPU run's greedy tokens and
+    prefill logits within 1e-4 (the card's float32 products sum in another
+    order); K3 launches once per attention layer per prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import CausalLM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 64, 30)]
+    cpu_model = CausalLM(cfg, device="cpu", seed=0)
+    card_model = _card_copy(cfg, cpu_model, dev)
+    toks = torch.as_tensor(prompts[1])[None]
+    want, _ = cpu_model.prefill(toks, 96, torch.float32)
+    got, _ = card_model.prefill(toks.to(dev), 96, torch.float32)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    out = {}
+    for device, model in (("cpu", cpu_model), ("cuda", card_model)):
+        eng = ServeEngine(model, 2, 96)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=10))
+        out[device] = {r.rid: r.out_tokens for r in eng.run()}
+        launches = eng.k3_launches
+    assert out["cpu"] == out["cuda"]
+    per_prefill = {"moe": cfg.n_layers, "hybrid": cfg.n_layers // cfg.attn_every,
+                   "ssm": 0}[cfg.family]
+    assert launches == {"prefill": len(prompts) * per_prefill, "decode": 0}
+
+
+def test_moe_prefills_are_bit_identical(dev):
+    """The MoE combine sums each token's k expert outputs in a fixed order
+    (no atomics): two identical bf16 prefills on the card agree bit for
+    bit, logits and cache."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import CausalLM
+
+    model = CausalLM(get_smoke("deepseek-moe-16b"), device=dev, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 512, (2, 200)),
+                           device=dev)
+    (a, ca), (b, cb) = (model.prefill(toks, 256) for _ in range(2))
+    assert torch.equal(a, b)
+    for group in ca:
+        for name in ca[group]:
+            assert torch.equal(ca[group][name], cb[group][name])
