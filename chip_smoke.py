@@ -7,9 +7,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, in parallel), log each source's registers
-   and spills and, per instantiation, those of K3's Hopper kernel, log
-   which of K3's kernels each (dtype, hd) launches (read by the profiler),
-   and print the card's name and power limit;
+   and spills and, per instantiation, those of K3's Hopper kernel (hd 64,
+   80, 128, 256), check which of K3's kernels each (dtype, hd) launches
+   (read by the profiler: bf16 hd 64/80/128/256 the Hopper kernel, bf16
+   hd 16 the mma.sync kernel, float32 the FMA kernel), and print the
+   card's name and power limit;
 2. hold the fused stream+collide kernel K1 against its plain PyTorch
    version on a small walled and a small periodic geometry: every mode x
    {LBGK, MRT} x {incompressible, quasi-compressible} x force on/off, in
@@ -84,8 +86,11 @@ Phases (any failure exits non-zero and prints no result line):
    window in {1, 63, 64, 129, 1000, S} and prefix in {1, 127, 300, S + 1}
    (and window 129 with prefix 300) x softcap in {None, 50}, stopping at
    the first case beyond the bound; then at hd 80 (zamba2's shared block:
-   the mma.sync kernel in bf16, the FMA kernel in float32) x S = T in {1,
-   63, 64, 65, 1000, 2048} x causal off, causal, windows 63 and 1000;
+   the Hopper kernel in bf16, with its 16-column tail chunk; the FMA kernel
+   in float32) x S = T in {1, 63, 64, 65, 127, 128, 129, 255, 257, 1000,
+   2048} x (B, H, KVH) in {(1, 4, 2), (2, 4, 2)}, and zamba2's heads (1,
+   32, 32) at 2048 x causal off, causal, windows 63 and 1000, prefixes 1,
+   127 and 300, softcap 50 on four of them;
 7. drive the LM serving path at full width, six models in turn, each
    freed before the next: starcoder2-3b (30 layers, d_model 3072, 24
    query heads over 2 KV heads, hd 128; 8 requests of 2048 tokens,
@@ -129,7 +134,7 @@ Phases (any failure exits non-zero and prints no result line):
 8. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, and K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
-   at deepseek's hd 128, ``_hd80`` at zamba2's), the ``nvidia-smi`` line
+   at deepseek's hd 128, ``_hd80`` at zamba2's hd 80), the ``nvidia-smi`` line
    and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
@@ -242,9 +247,21 @@ SERVE_RUNS = (ServeRun("starcoder2-3b", 4, 4096, 8, 2048, 32),
               ServeRun("deepseek-moe-16b", 4, 4096, 8, 2048, 32, "bfloat16"),
               ServeRun("zamba2-2.7b", 4, 4096, 8, 2048, 32),
               ServeRun("rwkv6-3b", 4, 4096, 8, 2048, 32))
-# K3 at zamba2's head dim on its own kernel path (mma.sync in bf16, FMA in
-# float32): ragged lengths around its 64-row blocks and key tiles
-K3_HD80_LENGTHS = (1, 63, 64, 65, 1000, 2048)
+# K3 at zamba2's head dim (the Hopper kernel with its 16-column tail chunk
+# in bf16, FMA in float32): ragged lengths around the Hopper kernel's
+# 128-row blocks and 128-key tiles (and the FMA kernel's 64); (B, H, KVH):
+# GQA and two batches (and zamba2's (1, 32, 32) at its prompt length,
+# 2048); (causal, window, prefix) masks, each with softcap None and, where
+# marked, 50
+K3_HD80_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 255, 257, 1000, 2048)
+K3_HD80_HEADS = ((1, 4, 2), (2, 4, 2))
+K3_HD80_MASKS = (((False, None, 0), True), ((True, None, 0), True), ((True, 63, 0), False),
+                 ((True, 1000, 0), True), ((True, None, 1), False),
+                 ((True, None, 127), True), ((True, None, 300), False))
+# the kernel of csrc/flash_attn.cu that each (dtype, hd) must launch
+K3_KERNEL_OF = {("float32", hd): "flash_fwd_kernel" for hd in (16, 64, 80, 128, 256)} | {
+    ("bfloat16", 16): "flash_fwd_mma_kernel"} | {
+    ("bfloat16", hd): "flash_fwd_wgmma_kernel" for hd in (64, 80, 128, 256)}
 
 
 def model_mask(cfg) -> str:
@@ -259,7 +276,8 @@ def model_mask(cfg) -> str:
 def kernel_entry(cfg) -> str:
     """The model's K3 entry of the kernels line, named for what sets its
     launches apart: gemma2's window, a vlm's prefix, zamba2's hd 80 (the
-    mma.sync kernel), the MoE family's layers; else causal K3."""
+    Hopper kernel's 16-column tail chunk), the MoE family's layers; else
+    causal K3."""
     mask = model_mask(cfg)
     if mask != "causal":
         return f"flash_attention_{mask}"
@@ -621,15 +639,24 @@ class Smoke:
         k2._lib()
         k3._lib()
         # which K3 kernel each (dtype, hd) takes, read by the profiler in its
-        # first session of the process
+        # first session of the process (a second session where it lost a
+        # record); each must be K3_KERNEL_OF's
         gen = torch.Generator(device=self.dev).manual_seed(0)
-        combos = [(dtype, hd) for dtype in (torch.float32, torch.bfloat16)
-                  for hd in (16, 64, 80, 128, 256)]
-        inputs = [self._qkv(gen, dtype, 1, 200, 4, 2, hd) for dtype, hd in combos]
-        names = k3_kernel_names([lambda x=x: k3.flash_attention(*x) for x in inputs])
+        combos = list(K3_KERNEL_OF)
+        inputs = [self._qkv(gen, getattr(torch, dtype), 1, 200, 4, 2, hd)
+                  for dtype, hd in combos]
+        for _ in range(2):
+            names = k3_kernel_names([lambda x=x: k3.flash_attention(*x) for x in inputs])
+            if None not in names:
+                break
         log("[K3 kernels] " + "; ".join(
-            f"{str(dtype).split('.')[1]} hd={hd}: {name or 'not seen by the profiler'}"
+            f"{dtype} hd={hd}: {name or 'not seen by the profiler'}"
             for (dtype, hd), name in zip(combos, names)))
+        wrong = [f"{dtype} hd={hd}: {name}" for (dtype, hd), name in zip(combos, names)
+                 if name != K3_KERNEL_OF[dtype, hd]]
+        if wrong:
+            raise AssertionError(f"K3 launched another kernel than csrc/flash_attn.cu's "
+                                 f"dispatch names (or the profiler missed it): {wrong}")
 
     # ---------------------------------------------------- phase 2 and 3
     def _small_state(self, geometry, lat, dtype):
@@ -1496,34 +1523,43 @@ class Smoke:
             f"|err| / bound over elements: {json.dumps(worst)}")
 
     def check_k3_hd80(self) -> None:
-        """K3 at hd 80 (zamba2's shared attention block: the mma.sync
-        kernel in bf16, the FMA kernel in float32) against its plain
-        version, element by element within ``error_bound``: causal and
-        not, with and without a window, at lengths around its 64-row
-        blocks and 64-key tiles."""
+        """K3 at hd 80 (zamba2's shared attention block: the Hopper kernel
+        with its 16-column tail chunk in bf16, the FMA kernel in float32)
+        against its plain version, element by element within
+        ``error_bound``: at lengths one short of, on and past the 128-row
+        blocks and 128-key tiles, GQA, two batches and zamba2's heads,
+        causal and not, with windows, prefixes and softcap 50, so that
+        every template branch (causal x softcap, masked and unmasked
+        tiles) runs."""
+        t0 = time.perf_counter()
         gen = torch.Generator(device=self.dev).manual_seed(2)
         worst, count = {}, 0
         for dtype in (torch.float32, torch.bfloat16):
             for s in K3_HD80_LENGTHS:
-                q, k, v = self._qkv(gen, dtype, 1, s, 4, 2, 80)
-                for causal, window in ((False, None), (True, None), (True, 63),
-                                       (True, 1000)):
-                    kw = dict(causal=causal, window=window)
-                    got = k3.flash_attention(q, k, v, **kw)
-                    torch.cuda.synchronize()
-                    want = k3.flash_attention_ref(q, k, v, **kw)
-                    err, ratio = k3_error(q, k, v, got, want, kw)
-                    tag = str(dtype).split(".")[1]
-                    worst[tag] = max(worst.get(tag, 0.0), ratio)
-                    count += 1
-                    if not ratio <= 1.0 or got.shape != q.shape:
-                        raise AssertionError(
-                            f"K3 {tag} hd=80 S=T={s} causal={causal} window={window}: "
-                            f"max |err| {err:.3e}, {ratio:.3f} of the bound at the "
-                            "worst element")
-                del q, k, v, got, want
-        log(f"[K3 hd=80 vs plain] {count} cases within tolerance; worst |err| / "
-            f"bound over elements, by dtype: {json.dumps(worst)}")
+                heads = K3_HD80_HEADS + (((1, 32, 32),) if s == 2048 else ())
+                for b, h, kvh in heads:
+                    q, k, v = self._qkv(gen, dtype, b, s, h, kvh, 80)
+                    for (causal, window, prefix), with_cap in K3_HD80_MASKS:
+                        for cap in (None, 50.0) if with_cap else (None,):
+                            kw = dict(causal=causal, window=window, prefix_len=prefix,
+                                      softcap=cap)
+                            got = k3.flash_attention(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            want = k3.flash_attention_ref(q, k, v, **kw)
+                            err, ratio = k3_error(q, k, v, got, want, kw)
+                            tag = str(dtype).split(".")[1]
+                            worst[tag] = max(worst.get(tag, 0.0), ratio)
+                            count += 1
+                            if not ratio <= 1.0 or got.shape != q.shape:
+                                raise AssertionError(
+                                    f"K3 {tag} hd=80 B={b} H={h} KVH={kvh} S=T={s} "
+                                    f"causal={causal} window={window} prefix={prefix} "
+                                    f"softcap={cap}: max |err| {err:.3e}, {ratio:.3f} of "
+                                    "the bound at the worst element")
+                    del q, k, v, got, want
+        log(f"[K3 hd=80 vs plain] {count} cases within tolerance in "
+            f"{time.perf_counter() - t0:.1f} s; worst |err| / bound over elements, by "
+            f"dtype: {json.dumps(worst)}")
 
     # ------------------------------------------------------------ phase 7
     def serve_main(self, run: "ServeRun") -> None:

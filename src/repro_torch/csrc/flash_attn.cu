@@ -31,23 +31,22 @@
 // above the card's ratio of flops to bytes (~295 bf16 flops per byte), so
 // the kernel's business is to keep the tensor cores fed and the logits out
 // of device memory.  Which kernel takes which (dtype, hd):
-// - bfloat16, hd in {64, 128, 256} (the serving path: every dense-global
-//   config has hd 128): the Hopper kernel (namespace hopper).  128 query
-//   rows per block in two consumer warpgroups of 64 rows and one producer
-//   warpgroup (384 threads, setmaxnreg 24 / 240); Q loaded once and K/V
-//   through a 2-stage ring of 128-key tiles (64 at hd 256) by TMA with
-//   128-byte swizzle, each stage guarded by full/empty mbarriers; both
+// - bfloat16, hd in {64, 80, 128, 256} (the serving path: every
+//   dense-global config has hd 128, zamba2's shared attention block hd 80):
+//   the Hopper kernel (namespace hopper).  128 query rows per block in two
+//   consumer warpgroups of 64 rows and one producer warpgroup (384
+//   threads, setmaxnreg 24 / 240); Q loaded once and K/V through a 2-stage
+//   ring of 128-key tiles (64 at hd 256) by TMA with 128-byte swizzle (hd
+//   80: a 64-column chunk with it and a 16-column chunk with the 32-byte
+//   swizzle), each stage guarded by full/empty mbarriers; both
 //   products on wgmma (S = Q K^T from shared memory, O += P V with P in
 //   registers), the softmax of one tile overlapping the P V product of the
 //   previous, and the two consumer warpgroups taking turns at the tensor
 //   cores.  p is rounded to bfloat16 for P V (the row sum l keeps the
 //   float32 values), as FlashAttention-3 and the reference's dense path do.
-// - bfloat16, hd in {16, 32, 80}: mma.sync tensor-core products, four warps
-//   per 64-row query block, synchronous K/V tile loads (namespace tc); p.v
-//   in TF32.  hd 80 is zamba2's shared attention block: a 160-byte row fits
-//   neither the Hopper kernel's 128-byte swizzled TMA chunks nor its wgmma
-//   widths, while this kernel's 16-byte row chunks (10 a row), its 16-wide
-//   k-steps (5) and 8-wide output tiles (10) all divide 80.
+// - bfloat16, hd in {16, 32} (the smoke configs): mma.sync tensor-core
+//   products, four warps per 64-row query block, synchronous K/V tile loads
+//   (namespace tc); p.v in TF32.  No full-size model has these widths.
 // - float32 (whose 1e-5 tolerance rules out TF32), and hd = 8: the products
 //   on the float32 FMA pipes (67 TFLOP/s): a 64 x 64 logits tile per block
 //   of 128 threads, each thread holding an 8 x 4 block of logits and an
@@ -273,13 +272,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16, hd in {16, 32, 80}: the two products on the tensor cores
+// bfloat16, hd in {16, 32}: the two products on the tensor cores
 // (mma.sync).
 //
 // Four warps per 64-row query block, 16 rows each.  Rows of Q, K and V sit
-// in shared memory at a stride of HD + 8 bf16 (16 bytes of pad): at hd 80
-// that is 44 words, so the 8 row groups of a fragment load start 12 banks
-// apart and its 32 lanes hit 32 banks.  Logits: m16n8k16 bf16
+// in shared memory at a stride of HD + 8 bf16 (16 bytes of pad: an odd
+// number of 16-byte units a row, so the 8 row groups of a fragment load
+// fall in distinct banks).  Logits: m16n8k16 bf16
 // products of Q and K (exact products, float32 sums), then scaled in
 // float32.  Softmax in float32 on the accumulator fragments.  P @ V:
 // m16n8k8 TF32 products, so p keeps 10 mantissa bits (bf16 would keep 7);
@@ -474,8 +473,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace tc
 
 // --------------------------------------------------------------------------
-// bfloat16, hd in {64, 128, 256}: the Hopper kernel (TMA, mbarriers, wgmma,
-// warp specialisation).
+// bfloat16, hd in {64, 80, 128, 256}: the Hopper kernel (TMA, mbarriers,
+// wgmma, warp specialisation).
 //
 // Block: 128 query rows of one (batch, query head), 384 threads in three
 // warpgroups.  Warpgroup 0 is the producer: it gives up registers
@@ -486,7 +485,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // Shared memory: Q (128 rows, loaded once) and a ring of STAGES = 2 K
 // tiles and 2 V tiles of BK keys.  Every tile is stored as hd / 64 column
 // chunks of 64 bf16 (128 bytes) per row, the layout of TMA's 128-byte
-// swizzle, which is also the layout wgmma reads (see smem_desc).  Each
+// swizzle, which is also the layout wgmma reads (see smem_desc).  At hd
+// 80 (160-byte rows) a tile is one such chunk (columns 0-63) and a tail
+// chunk of 16 columns (64-79) at 32 bytes a row with the 32-byte swizzle:
+// both are layouts that TMA writes and wgmma reads, so nothing is padded,
+// S = Q K^T takes a fifth k-step over the tail, and O += P V adds an
+// m64n16 product over the tail to the m64n64 one (together the register
+// order of one m64n80 accumulator).  Each
 // stage has a "full" barrier (the producer's arrive.expect_tx, completed
 // by the TMA's bytes) and an "empty" barrier (one arrival from each of the
 // 8 consumer warps once the wgmma that read the tile has finished), for K
@@ -514,7 +519,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // ragged last tile, take it, and a row that sees nothing of a tile keeps
 // its m, l and O (the m == -inf guard of softmax_tile).  Registers: 168
 // per thread at launch; ptxas fits the consumers in 240 with no spill at
-// hd 64, 128 and 256.
+// hd 64, 80, 128 and 256.
 // --------------------------------------------------------------------------
 namespace hopper {
 
@@ -522,11 +527,15 @@ constexpr int BQ = 128;          // query rows per block
 constexpr int NT = 384;          // threads per block
 constexpr int STAGES = 2;        // K/V ring depth
 constexpr int CW = 64;           // columns per 128-byte swizzle chunk
+constexpr int TW = 16;           // columns of the tail chunk (hd 80), 32-byte swizzle
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
   static constexpr int BK = HD >= 256 ? 64 : 128;              // keys per tile
+  static constexpr int NCH = HD / CW;                          // 128-byte chunks
+  static constexpr bool TAIL = HD % CW != 0;                   // a 16-column chunk
+  static_assert(HD % CW == 0 || HD % CW == TW, "hd: 64-column chunks and one 16-column tail");
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;                 // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -545,17 +554,23 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t bar, u
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
-// address >> 4 (bits 0-13), leading byte offset >> 4 (16-29), stride byte
-// offset >> 4 (32-45), layout type 1 = SWIZZLE_128B (62-63).  K-major
-// operands (Q, K: rows of 128 bytes along hd) step 8-row groups by the
-// stride offset (1024 B) and ignore the leading offset; the MN-major V
-// steps 8-key groups by the stride offset (1024 B) and 64-column chunks of
-// hd by the leading offset (one chunk = BK rows of 128 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory matrix descriptor: start address >> 4 (bits 0-13),
+// leading byte offset >> 4 (16-29), stride byte offset >> 4 (32-45),
+// layout type (62-63): 0 none, 1 = SWIZZLE_128B, 2 = SWIZZLE_64B, 3 =
+// SWIZZLE_32B.  With the 128-byte swizzle, K-major operands (Q, K: rows of
+// 128 bytes along hd) step 8-row groups by the stride offset (1024 B) and
+// ignore the leading offset; the MN-major V steps 8-key groups by the
+// stride offset (1024 B) and 64-column chunks of hd by the leading offset
+// (one chunk = BK rows of 128 B).  With the 32-byte swizzle (hd 80's tail
+// chunk, rows of 32 bytes: one k-step of Q or K, all 16 columns of V) an
+// 8-row group is 256 B, the stride offset, and the leading offset is
+// unused for both majors.
+constexpr uint32_t SW128 = 1, SW32 = 3;
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -626,6 +641,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -722,29 +749,46 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// S = Q K_j^T for this warpgroup's 64 rows: HD / 16 k-steps, each 32 bytes
-// further into a 128-byte swizzled row (a new column chunk every 4 steps).
+// S = Q K_j^T for this warpgroup's 64 rows: 4 k-steps per 128-byte chunk,
+// each 32 bytes further into a 128-byte swizzled row, and at hd 80 a fifth
+// over the tail chunk (q_tail: this warpgroup's rows there).
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::BK / 2], uint32_t q_rows,
-                                         uint32_t k_tile) {
+                                         uint32_t q_tail, uint32_t k_tile) {
   constexpr int BK = Cfg<HD>::BK;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < Cfg<HD>::NCH * 4; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(s, smem_desc(q_rows + (kk / 4) * BQ * 128 + off, 16, 1024),
-             smem_desc(k_tile + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+    wgmma_ss(s, smem_desc(q_rows + (kk / 4) * BQ * 128 + off, 16, 1024, SW128),
+             smem_desc(k_tile + (kk / 4) * BK * 128 + off, 16, 1024, SW128), kk > 0);
   }
+  if constexpr (Cfg<HD>::TAIL)
+    wgmma_ss(s, smem_desc(q_tail, 16, 256, SW32),
+             smem_desc(k_tile + Cfg<HD>::NCH * BK * 128, 16, 256, SW32), 1);
 }
 
-// O += P V_j: BK / 16 k-steps of 16 keys (2048 bytes of V each).
+// O += P V_j: BK / 16 k-steps of 16 keys (2048 bytes of V each; at hd 80
+// 2048 of the 64-column chunk into o[0..31] and 512 of the tail into
+// o[32..39], the register order of one n80 accumulator).
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&p)[Cfg<HD>::BK / 16][4],
                                          uint32_t v_tile) {
   constexpr int BK = Cfg<HD>::BK;
+  if constexpr (Cfg<HD>::TAIL) {
+    float(&o_main)[CW / 2] = *reinterpret_cast<float(*)[CW / 2]>(o);
+    float(&o_tail)[TW / 2] = *reinterpret_cast<float(*)[TW / 2]>(o + CW / 2);
+    const uint32_t v_tail = v_tile + BK * 128;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs(o_main, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024, SW128));
+      wgmma_rs(o_tail, p[kk], smem_desc(v_tail + kk * 16 * 32, 16, 256, SW32));
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024, SW128));
+  }
 }
 
 // Whether every key of the tile [k0, k0 + BK) is visible to every row of
@@ -842,19 +886,27 @@ __device__ __forceinline__ void to_bf16(const float (&s)[NS], uint32_t (&p)[NS /
 }
 
 // q, out: (B, S, H, HD); k, v: (B, Tk, KVH, HD); bf16, described by the
-// tensor maps (see encode).  1-D grid of ceil(S / BQ) * H * B blocks, the
-// last query blocks (the heaviest under the causal mask) first.
+// tensor maps (see encode): tm_q, tm_k and tm_v for the 64-column chunks,
+// tm_q_tail, tm_k_tail and tm_v_tail for hd 80's 16-column tail chunk
+// (unused at the other widths; last, so that the other parameters keep
+// their places).  1-D grid of ceil(S / BQ) * H * B blocks, the last query
+// blocks (the heaviest under the causal mask) first.
 template <int HD, bool CAUSAL, bool SOFTCAP>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out, int S, int Tk, int H, int KVH,
-                       int B, float scale, float cap, int window, int prefix) {
+                       int B, float scale, float cap, int window, int prefix,
+                       const __grid_constant__ CUtensorMap tm_q_tail,
+                       const __grid_constant__ CUtensorMap tm_k_tail,
+                       const __grid_constant__ CUtensorMap tm_v_tail) {
   using C = Cfg<HD>;
-  constexpr int BK = C::BK, NCH = HD / CW;
+  constexpr int BK = C::BK, NCH = C::NCH;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;   // swizzle atoms: 1 KB
+  // every chunk starts on 1 KB (a 128-byte swizzle atom; the 32-byte
+  // swizzle's is 256 B): Q, K and V tiles are multiples of 1 KB
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = q_s + C::Q_BYTES;                         // + stage * KV_BYTES
   const uint32_t v_s = k_s + STAGES * C::KV_BYTES;
   const uint32_t bars = q_s + C::BAR_OFF;
@@ -898,6 +950,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int c = 0; c < NCH; ++c) tma_load(&tm_q, q_full, q_s + c * BQ * 128, c * CW, h, q0, b);
+      if constexpr (C::TAIL) tma_load(&tm_q_tail, q_full, q_s + NCH * BQ * 128, NCH * CW, h, q0, b);
       // ring position i holds key tile j0 + i
       auto load_k = [&](int i) {
         const int st = i % STAGES;
@@ -906,6 +959,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < NCH; ++c)
           tma_load(&tm_k, k_full(st), k_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
                    (j0 + i) * BK, b);
+        if constexpr (C::TAIL)
+          tma_load(&tm_k_tail, k_full(st), k_s + st * C::KV_BYTES + NCH * BK * 128, NCH * CW,
+                   kvh, (j0 + i) * BK, b);
       };
       auto load_v = [&](int i) {
         const int st = i % STAGES;
@@ -914,6 +970,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < NCH; ++c)
           tma_load(&tm_v, v_full(st), v_s + st * C::KV_BYTES + c * BK * 128, c * CW, kvh,
                    (j0 + i) * BK, b);
+        if constexpr (C::TAIL)
+          tma_load(&tm_v_tail, v_full(st), v_s + st * C::KV_BYTES + NCH * BK * 128, NCH * CW,
+                   kvh, (j0 + i) * BK, b);
       };
       // K runs one tile ahead of V: S_{i+1} needs K_{i+1} before P_i V_i
       // needs V_i, and a V slot frees only after the P V product that read it
@@ -941,6 +1000,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
     const float scale_log2 = scale * LOG2E;
     const uint32_t q_rows = q_s + (wg - 1) * 64 * 128;
+    const uint32_t q_tail = q_s + NCH * BQ * 128 + (wg - 1) * 64 * TW * 2;   // hd 80
     auto release = [&](uint32_t bar) { mbar_arrive_if(bar, lane == 0); };
 
     float o[HD / 2], s[BK / 2], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
@@ -955,7 +1015,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(k_full(0), 0);
       named_sync(wg);
       wgmma_fence();
-      issue_qk<HD>(s, q_rows, k_s);
+      issue_qk<HD>(s, q_rows, q_tail, k_s);
       wgmma_commit();
       named_arrive(3 - wg);
       wgmma_wait<0>();
@@ -971,7 +1031,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(v_full(prev), ((i - 1) / STAGES) & 1);
       named_sync(wg);
       wgmma_fence();                      // p and o were written by ordinary code
-      issue_qk<HD>(s, q_rows, k_s + st * C::KV_BYTES);
+      issue_qk<HD>(s, q_rows, q_tail, k_s + st * C::KV_BYTES);
       wgmma_commit();
       issue_pv<HD>(o, p, v_s + prev * C::KV_BYTES);
       wgmma_commit();
@@ -1050,22 +1110,23 @@ inline EncodeTiled encode_tiled() {
 
 // A contiguous bf16 (B, rows, heads, HD) tensor as the 4-D map (HD, heads,
 // rows, B) with the real strides (so GQA reads K/V heads in place), boxes
-// of 64 columns x 1 head x box_rows rows x 1 batch, 128-byte swizzle, and
-// zeros for rows past the end.
+// of box_cols columns x 1 head x box_rows rows x 1 batch with the given
+// swizzle (64 columns with the 128-byte swizzle; hd 80's tail: 16 with the
+// 32-byte swizzle), and zeros for rows past the end.
 inline bool encode(CUtensorMap* map, const void* base, int hd, int heads, int rows, int batch,
-                   int box_rows) {
+                   int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t row_bytes = 2ull * hd;
   const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * rows};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CW), 1u, static_cast<cuuint32_t>(box_rows),
-                             1u};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1u,
+                             static_cast<cuuint32_t>(box_rows), 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
@@ -1075,10 +1136,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   if (Tk == 0)   // no keys: every row has l == 0 and gives zeros
     return static_cast<int>(
         cudaMemsetAsync(out, 0, sizeof(__nv_bfloat16) * B * S * H * HD, stream));
+  constexpr int BK = Cfg<HD>::BK;
+  constexpr auto SW = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, HD, H, S, B, BQ) || !encode(&tk, k, HD, KVH, Tk, B, Cfg<HD>::BK) ||
-      !encode(&tv, v, HD, KVH, Tk, B, Cfg<HD>::BK))
+  if (!encode(&tq, q, HD, H, S, B, BQ, CW, SW) || !encode(&tk, k, HD, KVH, Tk, B, BK, CW, SW) ||
+      !encode(&tv, v, HD, KVH, Tk, B, BK, CW, SW))
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq_tail = tq, tk_tail = tk, tv_tail = tv;   // the tail's maps, hd 80 only
+  if constexpr (Cfg<HD>::TAIL) {
+    constexpr auto SWT = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!encode(&tq_tail, q, HD, H, S, B, BQ, TW, SWT) ||
+        !encode(&tk_tail, k, HD, KVH, Tk, B, BK, TW, SWT) ||
+        !encode(&tv_tail, v, HD, KVH, Tk, B, BK, TW, SWT))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return with_flag(causal, [&](auto CAUSAL) {
     return with_flag(softcap, [&](auto SOFTCAP) {
       auto kernel =
@@ -1087,9 +1158,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Cfg<HD>::bytes));
       if (err != cudaSuccess) return static_cast<int>(err);
       const int blocks = (S + BQ - 1) / BQ * H * B;
-      kernel<<<blocks, NT, Cfg<HD>::bytes, stream>>>(tq, tk, tv,
-                                                     static_cast<__nv_bfloat16*>(out), S, Tk,
-                                                     H, KVH, B, scale, cap, window, prefix);
+      kernel<<<blocks, NT, Cfg<HD>::bytes, stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, Tk, H, KVH, B, scale, cap, window,
+          prefix, tq_tail, tk_tail, tv_tail);
       return static_cast<int>(cudaGetLastError());
     });
   });
@@ -1111,14 +1182,15 @@ int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 with hd 64, 128 or 256 takes the Hopper kernel, with hd 16, 32
-// or 80 the mma.sync kernel; float32 (whose tolerance TF32 would not meet)
+// bfloat16 with hd 64, 80, 128 or 256 takes the Hopper kernel, with hd 16
+// or 32 the mma.sync kernel; float32 (whose tolerance TF32 would not meet)
 // and hd = 8 the FMA kernel.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Tk, int H, int KVH, float scale, bool causal, bool softcap,
            float cap, int window, int prefix, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && (HD == 64 || HD == 128 || HD == 256))
+  if constexpr (std::is_same_v<T, __nv_bfloat16> &&
+                (HD == 64 || HD == 80 || HD == 128 || HD == 256))
     return hopper::launch<HD>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
                               window, prefix, stream);
   else

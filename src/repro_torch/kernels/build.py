@@ -57,10 +57,15 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    return start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out
+
+
+def start_nvcc(src: Path, out: Path | str) -> subprocess.Popen:
+    """Start nvcc on ``src`` with ``NVCC_FLAGS``, writing the library to
+    ``out``; the process's stdout is the compiler log."""
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
 
 
 def _finish(name: str, proc, tmp: str, out: Path) -> str:

@@ -21,10 +21,11 @@ On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
 (bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
 it runs :func:`flash_attention_ref`.  In bfloat16 (hd >= 16) the kernel
 runs both products on the tensor cores: q.k as exact bf16 products summed
-in float32, then scaled in float32; for p.v, at hd 64, 128 and 256 (the
-Hopper kernel: TMA, wgmma, warp-specialised) p is rounded to bfloat16 as
-the reference's dense path does, at hd 16, 32 and 80 (the mma.sync kernel;
-hd 80 is zamba2's shared attention block) to TF32.  In float32, and at hd
+in float32, then scaled in float32; for p.v, at hd 64, 80, 128 and 256
+(the Hopper kernel: TMA, wgmma, warp-specialised; hd 80, zamba2's shared
+attention block, as a 64-column and a 16-column chunk) p is rounded to
+bfloat16 as the reference's dense path does, at hd 16 and 32 (the
+mma.sync kernel, for the smoke configs) to TF32.  In float32, and at hd
 8, it computes in float32 throughout.
 """
 from __future__ import annotations

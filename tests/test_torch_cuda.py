@@ -13,10 +13,10 @@ attention) on unit-normal inputs, element by element within
 ``kernels.flash.error_bound``: 1e-5 in float32;
 in bfloat16 2**-7 (|plain| + P |v|), one bf16 ulp of each output plus
 K3's bf16 rounding of p in p.v, bounded by the same attention over |v|.
-The bf16 cases at hd 64/128/256 run the Hopper kernel (128-row blocks,
-128-key tiles, 64 at hd 256), so the shapes straddle those edges too; hd
-80 (zamba2) runs the mma.sync kernel in bf16 (64-row blocks, 64-key
-tiles) and the FMA kernel in float32.  The moe, ssm and hybrid smoke
+The bf16 cases at hd 64/80/128/256 run the Hopper kernel (128-row blocks,
+128-key tiles, 64 at hd 256; at hd 80, zamba2's, a 64-column chunk and a
+16-column tail chunk), so the shapes straddle those edges too; float32
+runs the FMA kernel (64-row blocks, 64-key tiles).  The moe, ssm and hybrid smoke
 models on the card against the same weights on the CPU: greedy tokens
 equal, prefill logits within 1e-4.
 """
@@ -496,20 +496,28 @@ def test_local_and_prefix_models_serve_the_cpu_tokens(dev, arch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,window", [(1, None), (63, None), (64, None), (65, None),
-                                      (65, 64), (129, 1), (200, 63), (2048, 1000)])
-def test_k3_hd80_block_edges(dev, dtype, s, window):
-    """hd 80 (zamba2's shared block): the mma.sync kernel in bf16, the FMA
-    kernel in float32, at lengths one short of, on and past their 64-row
-    blocks and 64-key tiles, zamba2's head counts (H = KVH), causal and
-    not."""
+@pytest.mark.parametrize("b,s,h,kvh,window,prefix,softcap", [
+    (1, 1, 32, 32, None, 0, None), (1, 63, 32, 32, None, 0, None),
+    (1, 64, 32, 32, None, 0, None), (1, 65, 32, 32, 64, 0, None),
+    (1, 127, 4, 2, None, 127, None), (2, 128, 4, 2, None, 0, 50.0),
+    (1, 129, 32, 32, 1, 0, None), (2, 200, 4, 2, 63, 0, None),
+    (2, 255, 4, 2, None, 1, None), (1, 257, 4, 2, None, 300, 50.0),
+    (1, 1000, 4, 2, 63, 0, 50.0), (1, 2048, 4, 2, 1000, 0, None),
+    (2, 2048, 32, 32, None, 0, None)])
+def test_k3_hd80_block_edges(dev, dtype, b, s, h, kvh, window, prefix, softcap):
+    """hd 80 (zamba2's shared block): the Hopper kernel with its
+    16-column tail chunk in bf16, the FMA kernel in float32, at lengths one
+    short of, on and past the 128-row blocks and 128-key tiles (and the FMA
+    kernel's 64), zamba2's head counts (H = KVH) up to its prompt length,
+    GQA, two batches, windows, prefixes and softcap 50, causal and not."""
     for causal in (True, False):
-        w = window if causal else None
-        q, k, v = _qkv(dev, dtype, 1, s, s, 32, 32, 80, seed=s)
-        got = k3.flash_attention(q, k, v, causal=causal, window=w)
+        kw = dict(causal=causal, window=window if causal else None,
+                  prefix_len=prefix if causal else 0, softcap=softcap)
+        q, k, v = _qkv(dev, dtype, b, s, s, h, kvh, 80, seed=s)
+        got = k3.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        want = k3.flash_attention_ref(q, k, v, causal=causal, window=w)
-        bound = k3.error_bound(q, k, v, want, causal=causal, window=w)
+        want = k3.flash_attention_ref(q, k, v, **kw)
+        bound = k3.error_bound(q, k, v, want, **kw)
         assert bool(((got.float() - want.float()).abs() <= bound).all())
 
 

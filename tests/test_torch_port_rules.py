@@ -30,6 +30,7 @@ import repro_torch.launch.sim_serve
 import repro_torch.dist.lbm, repro_torch.launch.mesh
 import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
 import chip_smoke
+import tools.k3_sass
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
@@ -38,6 +39,9 @@ print("BAD", bad)
 
 
 def test_port_and_chip_smoke_load_no_jax_or_reference():
+    """Every module of the port, chip_smoke.py and tools/k3_sass.py (which
+    run on the card's machine, where there is no JAX) import neither jax
+    nor the reference package."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                                        str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
