@@ -131,11 +131,42 @@ Phases (any failure exits non-zero and prints no result line):
    held to the same bound: ``scaled_dot_product_attention`` with the same
    mask, or, where gemma2's softcap applies, ``flex_attention`` with the
    softcap as its score_mod and the mask as its block mask;
-8. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
-   them, and K3 once for each serving run that attends, named for its
+8. the training path, after the serving models are freed:
+   (a) K3's backward kernel (``csrc/flash_attn_bwd.cu``) against its
+   plain version on float64 copies of the inputs, dQ, dK and dV element by
+   element within ``kernels.flash.error_bound_bwd``: float32 and bfloat16
+   x hd 16/32/64/128 x G in {1, 2, 12} (2 KV heads) x S = T in {64, 200,
+   1024} x causal, window 70, prefix 130, softcap 30, and all three;
+   (b) the backward at starcoder2-3b's and musicgen-large's layer shapes
+   (B = 2, S = 4096, bf16, causal) against its plain version, element by
+   element and norm-wise, with planted faults (a query head dropped, each
+   row's own 64-key tile left out of dQ) that the checks must reject, timed
+   (median of 50 launches) beside its operations bound (10 hd flops per
+   visible pair and head) and, in turns, beside the backward of
+   ``scaled_dot_product_attention(is_causal=True)`` through autograd (the
+   library yardstick, which the port never calls);
+   (c) starcoder2-3b trained at full width: ``make_train_step`` on
+   ``TokenPipeline`` batches of 2 x 4096 tokens, bf16 compute, float32
+   parameters and AdamW state, each layer under ``torch.utils.checkpoint``;
+   2 warm-up steps, then 5 between CUDA events: ms/step, tokens/s, the
+   share of the dense bf16 peak that 6 N tokens plus the attention's flops
+   make, peak memory, every step's loss and grad norm (finite); K3's
+   counters are zeroed just before the timed steps and read just after:
+   forward 2 x 30 per step (each layer runs again in the backward),
+   backward 30; one profiled step gives the device idle share and K3's
+   forward and backward shares of device busy time;
+   (d) musicgen-large likewise with (B, S, 4) tokens and 3 timed steps,
+   after the model-level prefill (2 x 1024 x 4 tokens) and 4 decode steps
+   with (B, 1, 4) tokens, whose logits must be finite and (2, 1, 4, 2048)
+   (``ServeEngine`` refuses the audio family, ROADMAP F6);
+9. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
+   them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
-   at deepseek's hd 128, ``_hd80`` at zamba2's hd 80), the ``nvidia-smi`` line
-   and, last, the result line ``{"ok": true, "device": {...}}``.
+   at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, and K3's backward,
+   ``flash_attention_bwd``, with its launches in starcoder2's timed
+   training steps and its numbers at starcoder2's layer shape), the
+   ``nvidia-smi`` line and, last, the result line ``{"ok": true,
+   "device": {...}}``.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
 of order 0.1 — the kernels sum in another order than the plain versions
@@ -148,7 +179,16 @@ over |v|: both versions compute in float32 and round to bfloat16 once, so
 they differ by one bf16 ulp where their float32 results straddle a
 rounding boundary, and K3's bf16 rounding of p in p.v moves an output by
 at most 2**-8 (P |v|) however much its terms cancel (twice that is
-allowed, as for the ulp).
+allowed, as for the ulp).  K3's backward: ``kernels.flash.
+error_bound_bwd`` -- 2**-14 (|plain| + mass) in float32 and 2**-7 (|plain|
++ mass) in bfloat16, the mass being each output's sum over absolute
+values (P^T |dO|; scale M^T |q| and scale M |k| with M = p (|dO| |V|^T +
+rowsum(|dO| o |O|)) bounding |dS| and its roundings): a blocked float32
+sum's error, and in bfloat16 one ulp of the output plus the kernel's bf16
+rounding of p and dS, doubled; at the training shapes also ||kernel -
+plain|| / ||plain|| <= 2**-6 per output (each bf16 rounding moves an
+output by at most 2**-8 of itself, and the roundings of p and dS add up
+like the output's own terms).
 """
 from __future__ import annotations
 
@@ -181,6 +221,7 @@ from repro_torch.data import geometry as geo  # noqa: E402
 from repro_torch.dist.lbm import ShardedLBM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.tokens import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import collide as k2  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
@@ -188,8 +229,10 @@ from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, init_state  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sim.service import SimService  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,   # non-tensor-core
@@ -258,6 +301,44 @@ K3_HD80_HEADS = ((1, 4, 2), (2, 4, 2))
 K3_HD80_MASKS = (((False, None, 0), True), ((True, None, 0), True), ((True, 63, 0), False),
                  ((True, 1000, 0), True), ((True, None, 1), False),
                  ((True, None, 127), True), ((True, None, 300), False))
+# K3's backward kernel against its plain version: S = T, (G, KVH) with H =
+# G x KVH (starcoder2's G = 12), and (window, prefix, softcap) masks
+K3_BWD_LENGTHS = (64, 200, 1024)
+K3_BWD_GROUPS = (1, 2, 12)
+K3_BWD_MASKS = ((None, 0, None), (70, 0, None), (None, 130, None), (None, 0, 30.0),
+                (40, 100, 30.0))
+K3_BWD_MAIN = (2, 4096)      # (B, S) of the training runs' layers
+# At those shapes the backward's bf16 outputs are also held norm-wise:
+# ||kernel - plain|| / ||plain|| per output.  Each version rounds every
+# output to bf16 once (at most 2**-8 relative) and the kernel rounds p and
+# dS to bf16, whose errors add up like the outputs themselves (random
+# signs), so the distance stays near 2**-8; four times that is allowed.
+# Where many terms cancel, error_bound_bwd's element-wise bound is loose
+# beside the value it checks; planted faults show that the two checks
+# together reject a kernel that drops one query head or each row's own
+# 64-key tile.
+K3_BWD_NORM_REL = 2.0 ** -6
+
+
+class TrainRun(NamedTuple):
+    """One training run at full width: ``warm`` untimed steps, then
+    ``timed`` steps between CUDA events."""
+    arch: str
+    batch: int
+    seq: int
+    warm: int
+    timed: int
+
+
+# starcoder2-3b at the reference's train_4k sequence length, and
+# musicgen-large (4 codebooks) at the same shape; both with bf16 compute,
+# float32 parameters and AdamW state, each layer checkpointed
+TRAIN_RUNS = (TrainRun("starcoder2-3b", 2, 4096, 2, 5),
+              TrainRun("musicgen-large", 2, 4096, 2, 3))
+# the kernel names of K3's forward and backward in a profiler trace
+K3_FWD_NAME, K3_BWD_NAME = "flash_fwd", "flash_bwd"
+
+
 # the kernel of csrc/flash_attn.cu that each (dtype, hd) must launch
 K3_KERNEL_OF = {("float32", hd): "flash_fwd_kernel" for hd in (16, 64, 80, 128, 256)} | {
     ("bfloat16", 16): "flash_fwd_mma_kernel"} | {
@@ -497,6 +578,30 @@ def collision_flops_per_node(q: int, e: np.ndarray, mrt: bool) -> int:
     return flops + (q * q * 2 + q * 2 if mrt else q * 3)
 
 
+def k3_bwd_dq_faults(q, k, v, out, dout, tile: int = 64):
+    """dQ of causal attention (bf16 inputs, the plain version's float32
+    math) twice: whole, and with each query's own ``tile``-key tile left out
+    of dS K, as a kernel that skipped the diagonal tile of its loop over key
+    tiles would give (a planted fault)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    scale = hd ** -0.5
+    qg = q.float().reshape(b, s, kvh, h // kvh, hd)
+    pos = torch.arange(s, device=q.device)
+    p = torch.einsum("bskgd,btkd->bkgst", qg * scale, k.float())
+    p.masked_fill_(pos[None, :] > pos[:, None], float("-inf"))
+    p = torch.softmax(p, dim=-1)
+    do = dout.float().reshape(qg.shape)
+    ds = torch.einsum("bskgd,btkd->bkgst", do, v.float())
+    ds -= (do * out.float().reshape(qg.shape)).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds *= p
+    del p
+    whole = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    ds.masked_fill_((pos[:, None] // tile) != (pos[None, :] // tile), 0.0)
+    fault = whole - torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    return whole.reshape(q.shape).to(q.dtype), fault.reshape(q.shape).to(q.dtype)
+
+
 def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -615,6 +720,8 @@ class Smoke:
         self.rng = np.random.default_rng(0)
         self.kernels: dict[str, dict] = {}
         self.sharded: dict[tuple, dict] = {}
+        self.k3_bwd: dict[str, dict] = {}
+        self.train: dict[str, dict] = {}
 
     # ------------------------------------------------------------ phase 1
     def build_kernels(self) -> None:
@@ -638,6 +745,7 @@ class Smoke:
         k1._lib()
         k2._lib()
         k3._lib()
+        k3._bwd_lib()
         # which K3 kernel each (dtype, hd) takes, read by the profiler in its
         # first session of the process (a second session where it lost a
         # record); each must be K3_KERNEL_OF's
@@ -1571,7 +1679,7 @@ class Smoke:
                 "the card's 80 GB; in bfloat16 the weights are read as they are")
             cfg = dataclasses.replace(cfg, param_dtype=run.param_dtype)
         t0 = time.perf_counter()
-        model = CausalLM(cfg, device=self.dev, seed=0)
+        model = CausalLM(cfg, device=self.dev, seed=0).requires_grad_(False)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         eng = ServeEngine(model, run.slots, run.max_len, cache_dtype=torch.float32)
@@ -1892,6 +2000,265 @@ class Smoke:
             del q, k, v, visible, lib_fn
         calls.clear()
 
+    # ------------------------------------------------------------ phase 8
+    def kernel_line_bwd(self) -> None:
+        """K3's backward in the kernels line: its launches in starcoder2's
+        timed training steps, its numbers at starcoder2's layer shape."""
+        t = self.k3_bwd["starcoder2-3b"]
+        run = self.train["starcoder2-3b"]
+        self.kernels["flash_attention_bwd"] = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": f"{SOURCE}/flash_attn_bwd.cu",
+            "replaces": "src/repro/models/attention.py:254",
+            "launches": run["bwd_launches"], "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "model": "starcoder2-3b",
+            "launches_per_step": run["bwd_launches"] / run["steps"]}
+
+    def check_k3_bwd_matrix(self) -> None:
+        """K3's backward kernel against its plain version on float64
+        copies of the inputs, element by element within
+        ``error_bound_bwd``, for dQ, dK and dV."""
+        gen = torch.Generator(device=self.dev).manual_seed(2)
+        worst, count = {}, 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for hd in k3.BWD_HEAD_DIMS:
+                for group in K3_BWD_GROUPS:
+                    for s in K3_BWD_LENGTHS:
+                        q, k, v = self._qkv(gen, dtype, 1, s, 2 * group, 2, hd)
+                        dout = torch.randn(q.shape, generator=gen, device=self.dev).to(dtype)
+                        for window, prefix, cap in K3_BWD_MASKS:
+                            kw = dict(softcap=cap, window=window, prefix_len=prefix)
+                            out = k3.flash_attention(q, k, v, **kw)
+                            got = k3.flash_attention_bwd(q, k, v, out, dout, **kw)
+                            torch.cuda.synchronize()
+                            want = k3.flash_attention_bwd_ref(
+                                *(x.double() for x in (q, k, v, out, dout)), **kw)
+                            bounds = k3.error_bound_bwd(q, k, v, out, dout, want, **kw)
+                            tag = f"{str(dtype).split('.')[1]} hd={hd}"
+                            for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+                                d = (g.to(w.dtype) - w).abs()
+                                ratio = float((d / bd).max())
+                                worst[tag] = max(worst.get(tag, 0.0), ratio)
+                                if not ratio <= 1.0:
+                                    raise AssertionError(
+                                        f"K3 bwd {tag} G={group} S=T={s} window={window} "
+                                        f"prefix={prefix} softcap={cap}: {name} max |err| "
+                                        f"{float(d.max()):.3e}, {ratio:.3f} of the bound")
+                            count += 1
+                        del q, k, v, dout, out, got, want, bounds
+        log(f"[K3 bwd vs plain] {count} cases (dq, dk, dv each) within "
+            f"error_bound_bwd; worst |err| / bound over elements: {json.dumps(worst)}")
+
+    def k3_bwd_main_shapes(self) -> None:
+        """K3's backward kernel at starcoder2-3b's and musicgen-large's
+        layer shapes (B = 2, S = 4096, bf16, causal): against its plain
+        version (the kernels line's max_abs_err: starcoder2's) element by
+        element within ``error_bound_bwd`` and norm-wise within
+        ``K3_BWD_NORM_REL``, with planted faults that must fail one of the
+        two (the plain version's gradients of a wrong function), timed
+        (median of 50 launches) beside its operations bound (10 hd flops
+        per visible (query, key) pair and head, at the dense bf16 peak),
+        the plain version and the library yardstick, which the port never
+        calls: the backward of ``scaled_dot_product_attention(is_causal=
+        True)`` through autograd, timed in turns with the kernel."""
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for arch in ("starcoder2-3b", "musicgen-large"):
+            cfg = get_config(arch)
+            (b, s), h, kvh, hd = K3_BWD_MAIN, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            q, k, v = self._qkv(gen, torch.bfloat16, b, s, h, kvh, hd)
+            dout = torch.randn(q.shape, generator=gen, device=self.dev).to(torch.bfloat16)
+            out = k3.flash_attention(q, k, v)
+            got = k3.flash_attention_bwd(q, k, v, out, dout)
+            torch.cuda.synchronize()
+            want = k3.flash_attention_bwd_ref(q, k, v, out, dout)
+            bounds = k3.error_bound_bwd(q, k, v, out, dout, want)
+
+            def held(outs, names=("dq", "dk", "dv")):
+                """{name: (worst |x - plain| / bound, ||x - plain|| / ||plain||)}"""
+                res = {}
+                for name, x in zip(names, outs):
+                    i = ("dq", "dk", "dv").index(name)
+                    w = want[i].float()
+                    d = x.float() - w
+                    res[name] = (float((d.abs() / bounds[i]).max()),
+                                 float(d.norm() / w.norm()))
+                return res
+
+            got_held = held(got)
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            ratio = max(r for r, _ in got_held.values())
+            norm = max(n for _, n in got_held.values())
+            del got
+            if not (ratio <= 1.0 and norm <= K3_BWD_NORM_REL):
+                raise AssertionError(f"K3 bwd vs plain at {arch}'s layer shape: max |err| "
+                                     f"{err:.3e}; worst / bound, norm-wise distance: "
+                                     f"{got_held} (norm-wise limit {K3_BWD_NORM_REL})")
+            # planted faults: the first query head's dO zeroed (dK and dV
+            # over G - 1 heads of KV head 0, or none where G = 1; that
+            # head's dQ zero), and dQ without each row's own 64-key tile
+            dropped = dout.clone()
+            dropped[:, :, 0] = 0
+            faults = {"head 0 dropped": held(
+                k3.flash_attention_bwd_ref(q, k, v, out, dropped))}
+            del dropped
+            dq_whole, dq_fault = k3_bwd_dq_faults(q, k, v, out, dout)
+            rebuilt = held([dq_whole], ("dq",))["dq"]
+            if not (rebuilt[0] <= 1.0 and rebuilt[1] <= K3_BWD_NORM_REL):
+                raise AssertionError(f"k3_bwd_dq_faults' whole dQ is not the plain "
+                                     f"version's at {arch}'s layer shape: {rebuilt}")
+            faults["diagonal key tile dropped"] = held([dq_fault], ("dq",))
+            del dq_whole, dq_fault, want, bounds
+            missed = [(f, name) for f, res in faults.items() for name, (r, n) in res.items()
+                      if r <= 1.0 and n <= K3_BWD_NORM_REL]
+            log(f"[K3 bwd {arch} checks] kernel: worst |err| / bound, ||err|| / ||plain|| "
+                f"{json.dumps(got_held)} (norm-wise limit {K3_BWD_NORM_REL}); planted "
+                f"faults: {json.dumps(faults)}")
+            if missed:
+                raise AssertionError(f"K3 bwd checks at {arch}'s layer shape pass planted "
+                                     f"faults: {missed}")
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = dout.transpose(1, 2)
+            times = interleaved_ms({
+                "kernel": lambda: k3.flash_attention_bwd(q, k, v, out, dout),
+                "sdpa": lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                    retain_graph=True)})
+            ms = time_ms(lambda: k3.flash_attention_bwd(q, k, v, out, dout), 50,
+                         label=f"K3 bwd {arch}")
+            plain_ms = time_ms(lambda: k3.flash_attention_bwd_ref(q, k, v, out, dout), 3,
+                               warm=1, label="K3 bwd plain")
+            pairs = b * s * (s + 1) / 2                  # visible, per head
+            flops = 10.0 * hd * h * pairs
+            nbytes = 2 * (4 * q.numel() + 4 * k.numel())  # q, o, dO, dq; k, v, dk, dv
+            bms, by = bound(nbytes, flops, torch.bfloat16)
+            log(f"[K3 bwd {arch} B={b} S={s} H={h} KVH={kvh} hd={hd} bf16 causal] |err| "
+                f"{err:.3e} ({ratio:.3f} of the bound, norm-wise {norm:.3e}); {ms:.4f} ms/launch = "
+                f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}, "
+                f"{bms / ms:.4f} of it); in turns with SDPA's backward: kernel "
+                f"{times['kernel']:.4f} ms, SDPA {times['sdpa']:.4f} ms (the kernel takes "
+                f"{times['kernel'] / times['sdpa']:.2f}x SDPA's time); plain {plain_ms:.3f} ms")
+            self.k3_bwd[arch] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                                 "bound_by": by, "library_ms": times["sdpa"]}
+            del q, k, v, dout, out, qt, kt, vt, o, dot
+
+    def train_main(self, run: "TrainRun") -> None:
+        """``make_train_step`` on ``TokenPipeline`` batches at full width:
+        ``run.warm`` steps, then ``run.timed`` between CUDA events; K3's
+        forward must launch 2 x layers per step (each checkpointed layer
+        runs again in the backward) and its backward once per layer."""
+        cfg = get_config(run.arch)
+        t0 = time.perf_counter()
+        model = CausalLM(cfg, device=self.dev, seed=0)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        audio = cfg.family == "audio"
+        if audio:
+            self.audio_serve_check(model, cfg)
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq,
+                          global_batch=run.batch, seed=0,
+                          num_codebooks=cfg.num_codebooks if audio else 0)
+        pipe = TokenPipeline(data)
+        steps = run.warm + run.timed
+        opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1)
+        step_fn = make_train_step(model, opt_cfg)
+        opt = init_state(dict(model.named_parameters()))
+        batches = [pipe.next() for _ in range(steps + 1)]   # made before the timing
+        metrics = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(run.warm):
+            opt, m = step_fn(opt, batches[i], i)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        k3.flash_attention.launches = k3.flash_attention_bwd.launches = 0
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for i in range(run.warm, steps):
+            opt, m = step_fn(opt, batches[i], i)
+            metrics.append(m)
+        stop.record()
+        stop.synchronize()
+        fwd, bwd = k3.flash_attention.launches, k3.flash_attention_bwd.launches
+        step_ms = start.elapsed_time(stop) / run.timed
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        if not all(np.isfinite(losses + norms)):
+            raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+        layers = cfg.n_layers
+        if fwd != 2 * layers * run.timed or bwd != layers * run.timed:
+            raise AssertionError(f"K3 launched {fwd} forward and {bwd} backward times in "
+                                 f"{run.timed} steps, expected {2 * layers} and {layers} "
+                                 "per step")
+        tokens = run.batch * run.seq
+        n = model.param_count()
+        pairs = run.batch * run.seq * (run.seq + 1) / 2
+        attn = 3 * 4.0 * cfg.hd * cfg.n_heads * pairs * layers   # fwd + bwd products
+        flops = 6.0 * n * tokens + attn
+        share = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+        log(f"[train {run.arch}] {n:,} parameters (float32, AdamW m/v float32, "
+            f"{cfg.dtype} compute, each layer checkpointed), init {setup:.1f} s; "
+            f"{run.batch} x {run.seq} tokens per step: {step_ms:.2f} ms/step = "
+            f"{tokens / step_ms * 1e3:.1f} tok/s over {run.timed} timed steps after "
+            f"{run.warm}; (6 N tokens + attention {attn:.3e}) = {flops:.3e} flops per "
+            f"step = {share:.4f} of the dense bf16 peak; peak device memory {peak:.2f} "
+            f"GiB; K3 launches per step: forward {fwd / run.timed:.0f} (2 x {layers}), "
+            f"backward {bwd / run.timed:.0f}; losses {[round(x, 4) for x in losses]}, "
+            f"grad norms {[round(x, 4) for x in norms]}")
+        self.train[run.arch] = {"bwd_launches": bwd, "fwd_launches": fwd,
+                                "step_ms": step_ms, "steps": run.timed}
+        self.profile_train(step_fn, opt, batches[-1], steps, run, step_ms)
+
+    def profile_train(self, step_fn, opt, batch, step, run, step_ms) -> None:
+        """One train step under ``torch.profiler``: the device idle share
+        against the unprofiled step time, and K3's forward and backward
+        shares of the device's busy time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(opt, batch, step)
+            torch.cuda.synchronize()
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if not dev:
+            log(f"[profile train {run.arch}] the profiler saw no device time: idle "
+                "share not measured")
+            return
+        busy_ms = busy_us(dev) / 1e3
+        fwd_ms = sum(b - a for a, b, n in dev if K3_FWD_NAME in n) / 1e3
+        bwd_ms = sum(b - a for a, b, n in dev if K3_BWD_NAME in n) / 1e3
+        parts = {part: sum(b - a for a, b, n in dev if K3_BWD_NAME in n and part in n) / 1e3
+                 for part in ("prep_kernel", "dkdv_kernel", "dq_kernel")}
+        log(f"[profile train {run.arch}] one step: {len(dev)} device ops, device busy "
+            f"{busy_ms:.2f} ms of {step_ms:.2f} ms unprofiled (idle share "
+            f"{1 - busy_ms / step_ms:.4f}); K3 forward {fwd_ms:.2f} ms = "
+            f"{fwd_ms / busy_ms:.4f} and backward {bwd_ms:.2f} ms = {bwd_ms / busy_ms:.4f} "
+            "of device busy time (backward by kernel, ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + ")")
+
+    def audio_serve_check(self, model, cfg) -> None:
+        """musicgen's model-level prefill and decode steps with (B, 1, K)
+        tokens (``ServeEngine`` refuses the audio family, ROADMAP F6): the
+        logits must be finite and (B, 1, K, V)."""
+        b, prompt, k, v = 2, 1024, cfg.num_codebooks, cfg.vocab_size
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        toks = torch.randint(0, v, (b, prompt, k), generator=gen, device=self.dev)
+        logits, cache = model.prefill(toks, prompt + 8, torch.float32)
+        shapes = [tuple(logits.shape)]
+        finite = bool(torch.isfinite(logits).all())
+        for i in range(4):
+            tok = logits[:, -1].argmax(-1)[:, None]             # (B, 1, K)
+            logits, cache = model.decode_step(tok, cache, prompt + i)
+            shapes.append(tuple(logits.shape))
+            finite &= bool(torch.isfinite(logits).all())
+        if not finite or set(shapes) != {(b, 1, k, v)}:
+            raise AssertionError(f"musicgen prefill/decode logits {shapes}, finite {finite}")
+        log(f"[serve {cfg.name}] model-level prefill of {b} x {prompt} x {k} tokens and 4 "
+            f"decode steps with (B, 1, {k}) tokens: logits {shapes[0]}, finite")
+        del cache, logits
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1931,6 +2298,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[serve {run.arch}] phase in {time.perf_counter() - t1:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated")
+    t1 = time.perf_counter()
+    smoke.check_k3_bwd_matrix()
+    smoke.k3_bwd_main_shapes()
+    for run in TRAIN_RUNS:
+        smoke.train_main(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    smoke.kernel_line_bwd()
+    log(f"[train] phase in {time.perf_counter() - t1:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

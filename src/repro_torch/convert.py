@@ -28,6 +28,11 @@ imports it:
   ``pairs``; the moe family's ``dense_layers`` and ``moe_layers``;
   zamba2's ``mamba`` and its per-group ``lora``) are indexed on their
   leading axis; zamba2's ``shared`` block is one copy.
+* :func:`opt_state_to_reference` / :func:`opt_state_from_reference`
+  carry the AdamW state (``repro_torch.optim.adamw``) across in the
+  reference's layout ``{"m": tree, "v": tree, "count": int32}``, the
+  trees in the parameters' pytree layout: a training checkpoint of either
+  package restores in the other.
 * :func:`lm_cache_from_reference` / :func:`lm_cache_to_reference` carry a
   decode cache across, a tree of nested dicts of any shape (k/v groups,
   rwkv6's ``wkv``/``tshift1``/``tshift2``, zamba2's ``ssm``/``conv``/
@@ -149,24 +154,23 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
-                             device=None) -> CausalLM:
-    """A port model on ``device`` (None: the card) holding the reference's
-    parameters."""
-    model = CausalLM(cfg, device=device, seed=None)
-    seen = set()
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            path, layer = _reference_path(name)
-            node = params_np
-            for key in path:
-                node = node[key]
-            arr = np.asarray(node if layer is None else node[layer])
-            if arr.shape != tuple(p.shape):
-                raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, "
-                                 f"expected {tuple(p.shape)}")
-            p.copy_(_tensor(arr))
-            seen.add(path)
+def named_from_reference(tree: dict, like: dict[str, torch.Tensor]) -> dict:
+    """{port name: numpy array} from a reference pytree in the parameters'
+    layout (nested dicts of numpy arrays), for every name of ``like``
+    ({port name: tensor of the expected shape}).  Raises on a shape
+    mismatch and on a reference leaf without a port counterpart."""
+    out, seen = {}, set()
+    for name, p in like.items():
+        path, layer = _reference_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node if layer is None else node[layer])
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, "
+                             f"expected {tuple(p.shape)}")
+        out[name] = arr
+        seen.add(path)
     leaves = set()
 
     def walk(node, path):
@@ -176,11 +180,29 @@ def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
         else:
             leaves.add(path)
 
-    walk(params_np, ())
+    walk(tree, ())
     if leaves != seen:
         raise ValueError(f"reference parameters without a port counterpart: "
                          f"{sorted(leaves - seen)}")
+    return out
+
+
+def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
+                             device=None) -> CausalLM:
+    """A port model on ``device`` (None: the card) holding the reference's
+    parameters, frozen for serving or comparison (``requires_grad_()``
+    makes them train)."""
+    model = CausalLM(cfg, device=device, seed=None).requires_grad_(False)
+    load_params(model, params_np)
     return model
+
+
+def load_params(model: CausalLM, params_np: dict) -> None:
+    """Copy a reference parameter pytree into ``model``'s parameters."""
+    named = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, arr in named_from_reference(params_np, named).items():
+            named[name].copy_(_tensor(arr))
 
 
 def _put(tree: dict, path: tuple[str, ...], value) -> None:
@@ -189,13 +211,14 @@ def _put(tree: dict, path: tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def lm_params_to_reference(model: CausalLM) -> dict:
-    """The reference pytree of ``model``'s parameters, as numpy."""
+def named_to_reference(named: dict[str, torch.Tensor]) -> dict:
+    """The reference pytree (nested dicts of numpy arrays, stacked groups
+    stacked) of tensors keyed by port parameter name."""
     out: dict = {}
     stacked: dict = {}
-    for name, p in model.named_parameters():
+    for name, p in named.items():
         path, layer = _reference_path(name)
-        arr = p.detach().cpu().numpy()
+        arr = p.detach().to("cpu", copy=True).numpy()   # owns its bytes
         if layer is None:
             _put(out, path, arr)
         else:
@@ -203,6 +226,27 @@ def lm_params_to_reference(model: CausalLM) -> dict:
     for path, arrs in stacked.items():
         _put(out, path, np.stack(arrs))
     return out
+
+
+def lm_params_to_reference(model: CausalLM) -> dict:
+    """The reference pytree of ``model``'s parameters, as numpy."""
+    return named_to_reference(dict(model.named_parameters()))
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """The AdamW state in the reference's layout, as numpy."""
+    return {"m": named_to_reference(state["m"]), "v": named_to_reference(state["v"]),
+            "count": np.array(int(state["count"]), dtype=np.int32)}
+
+
+def opt_state_from_reference(tree: dict, state: dict) -> None:
+    """Copy a reference AdamW state into the port's ``state`` (in place;
+    its m and v give the names and shapes)."""
+    with torch.no_grad():
+        for part in ("m", "v"):
+            for name, arr in named_from_reference(tree[part], state[part]).items():
+                state[part][name].copy_(_tensor(arr))
+    state["count"] = torch.tensor(int(np.asarray(tree["count"])), dtype=torch.int32)
 
 
 def _map_tree(fn, tree):

@@ -1,1 +1,1 @@
-"""Synthetic geometry generators."""
+"""Synthetic geometry generators and the token pipeline."""

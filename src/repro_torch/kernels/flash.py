@@ -19,7 +19,11 @@ query s when
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
 (bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
-it runs :func:`flash_attention_ref`.  In bfloat16 (hd >= 16) the kernel
+it runs :func:`flash_attention_ref`.  :class:`FlashAttention` is the
+differentiable form the model calls: K3 forward and its backward kernel
+``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_bwd`) on the card,
+:func:`flash_attention_ref` and :func:`flash_attention_bwd_ref` on the
+CPU.  In bfloat16 (hd >= 16) the kernel
 runs both products on the tensor cores: q.k as exact bf16 products summed
 in float32, then scaled in float32; for p.v, at hd 64, 80, 128 and 256
 (the Hopper kernel: TMA, wgmma, warp-specialised; hd 80, zamba2's shared
@@ -40,6 +44,7 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)       # csrc/flash_attn_bwd.cu
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -77,13 +82,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key."""
     _check_mask_args(causal, window, prefix_len)
     b, s, h, hd = q.shape
+    probs, _ = _probs(q, k, scale=scale, softcap=softcap, causal=causal,
+                      window=window, prefix_len=prefix_len)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(probs.dtype))
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _probs(q, k, *, scale=None, softcap=None, causal=True, window=None,
+           prefix_len=0):
+    """K3's probabilities (B, KVH, G, S, T) in float32 (float64 for float64
+    inputs: gradcheck), and the softcap's derivative 1 - tanh^2 at the
+    logits (None without one)."""
+    b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    qg = q.float().reshape(b, s, kvh, h // kvh, hd) * scale
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    qg = q.to(ct).reshape(b, s, kvh, h // kvh, hd) * scale
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(ct))
+    dcap = None
     if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
+        th = torch.tanh(logits / softcap)
+        logits, dcap = softcap * th, 1.0 - th * th
     if causal:
         visible = visible_mask(torch.arange(s, device=q.device),
                                torch.arange(t, device=q.device), window=window,
@@ -94,8 +114,42 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # a row that sees no key (a window past T < S) has l == 0 in K3 and
         # gives zeros
         probs = probs * visible.any(-1)[:, None]
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    return probs, dcap
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor, *,
+                            scale: float | None = None, softcap: float | None = None,
+                            causal: bool = True, window: int | None = None,
+                            prefix_len: int = 0):
+    """Plain PyTorch version of :func:`flash_attention_bwd`: the gradients
+    (dq, dk, dv) of :func:`flash_attention_ref` at ``out`` (its output)
+    for the output gradient ``dout``, in the inputs' dtypes.  The
+    reference's blockwise backward math (``_make_flash``'s bwd,
+    ``src/repro/models/attention.py:269-314``) over dense tensors, in
+    float32 (float64 for float64 inputs): dP = dO V^T, D = rowsum(dO o O),
+    dS = p (dP - D) (times 1 - tanh^2 under the softcap), dV = P^T dO and
+    dK = dS^T q scale summed over each KV head's query heads, dQ = dS K
+    scale."""
+    _check_mask_args(causal, window, prefix_len)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    p, dcap = _probs(q, k, scale=scale, softcap=softcap, causal=causal, window=window,
+                     prefix_len=prefix_len)
+    ct = p.dtype
+    do = dout.to(ct).reshape(b, s, kvh, h // kvh, hd)
+    dp = torch.einsum("bskgd,btkd->bkgst", do, v.to(ct))
+    delta = (do * out.to(ct).reshape(do.shape)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    qg = q.to(ct).reshape(b, s, kvh, h // kvh, hd)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, do)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(ct)) * scale
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,3 +243,142 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # launches, and those of them that applied a window or a prefix
 flash_attention.launches = 0
 flash_attention.mask_launches = {"window": 0, "prefix": 0}
+
+
+def error_bound_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor, want, **kw):
+    """How far :func:`flash_attention_bwd`'s (dq, dk, dv) may lie from
+    ``want``, the plain version's gradients (on float64 copies of the
+    inputs for float32 ones), element by element (three tensors, float64
+    for float32 inputs, float32 for bfloat16).
+
+    Each output's mass is its sum over absolute values: |dV| = P^T |dO|,
+    |dK| = scale M^T |q| and |dQ| = scale M |k|, where M = p (|dO| |V|^T +
+    rowsum(|dO| o |O|)) (times 1 - tanh^2) bounds |dS| and the rounding of
+    every float32 sum that makes it, however much dP and D cancel:
+
+    * float32: ``2**-14 (|want| + mass)``.  The kernel sums each output in
+      float32, within a 64-term tile and then across at most G x S / 64
+      tiles: a blocked sum's error is below (64 + tiles) 2**-24 of the
+      mass, under 2**-14 for the 832 tiles of G = 12 heads over S = 4096
+      queries, and p, D and dS each carry a few more roundings.
+    * bfloat16: ``2**-7 (|want| + mass)``.  Both versions compute in (at
+      least) float32 and the kernel rounds each output to bfloat16 once:
+      one bf16 ulp, at most 2**-7 |want|.  The kernel also rounds p and dS
+      to bfloat16 before the products that read them, a relative error of
+      at most 2**-8 on every term, so an output moves by at most 2**-8 of
+      its mass however much its terms cancel; the bound doubles both, as
+      :func:`error_bound` does.  Where many terms cancel the mass is
+      large beside the output itself, so ``chip_smoke.py`` also holds the
+      outputs norm-wise at the training shapes and plants faults there (a
+      query head dropped, each row's own key tile left out of dQ) that
+      must fall outside one check or the other."""
+    kw = {**kw, "scale": kw.get("scale") or 1.0 / math.sqrt(q.shape[-1])}
+    # the masses in float64 for float32 inputs; float32 is ample beside
+    # bfloat16's 2**-7
+    ct = torch.float32 if q.dtype == torch.bfloat16 else torch.float64
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    p, dcap = _probs(q.to(ct), k.to(ct), **kw)
+    qa, ka, va, oa, doa = (t.to(ct).abs() for t in (q, k, v, out, dout))
+    qa, oa, doa = (t.reshape(b, s, kvh, h // kvh, hd) for t in (qa, oa, doa))
+    m = torch.einsum("bskgd,btkd->bkgst", doa, va)
+    m += (doa * oa).sum(-1).permute(0, 2, 3, 1)[..., None]
+    m *= p
+    if dcap is not None:
+        m *= dcap
+    scale = kw["scale"]
+    mass = (torch.einsum("bkgst,btkd->bskgd", m, ka).reshape(q.shape) * scale,
+            torch.einsum("bkgst,bskgd->btkd", m, qa) * scale,
+            torch.einsum("bkgst,bskgd->btkd", p, doa))
+    rel = 2.0 ** -14 if q.dtype == torch.float32 else 2.0 ** -7
+    return tuple((w.to(ct).abs() + ms) * rel for w, ms in zip(want, mass))
+
+
+@lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attn_bwd")
+    lib.repro_flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        scale: float | None = None, softcap: float | None = None,
+                        causal: bool = True, window: int | None = None,
+                        prefix_len: int = 0):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at its output
+    ``out`` for the output gradient ``dout``: the backward kernel on the
+    card (causal only; bfloat16 or float32; hd in :data:`BWD_HEAD_DIMS`),
+    else it raises; :func:`flash_attention_bwd_ref` on the CPU."""
+    kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
+              prefix_len=prefix_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    _check_mask_args(causal, window, prefix_len)
+    if not causal:
+        raise ValueError("K3's backward kernel takes the causal mask only")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, S, H, hd) and k, v (B, T, KVH, hd)")
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_bwd takes float32/bfloat16, got {q.dtype}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the backward kernel's {BWD_HEAD_DIMS}")
+    if kvh == 0 or h % kvh or t == 0:
+        raise ValueError(f"{h} query heads over {kvh} KV heads and {t} keys")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    for name, x, shape in (("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape),
+                           ("out", out, q.shape), ("dout", dout, q.shape)):
+        build.check_tensor(x, name, q.device, q.dtype, shape)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    win = 0 if window is None or window >= s else int(window)
+    prefix = min(int(prefix_len), max(s, t))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        code = lib.repro_flash_attention_bwd(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(dout),
+            build.ptr(dq), build.ptr(dk), build.ptr(dv), build.ptr(lse), build.ptr(delta),
+            b, s, t, h, kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
+            float(softcap or 0.0), win, prefix, build.stream(q.device))
+    build.check(lib, code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# launches of the backward kernel (one per call: its three kernels)
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with its gradient: ``FlashAttention.apply(q, k, v, scale,
+    softcap, causal, window, prefix_len)``.  The forward is
+    :func:`flash_attention` and the backward :func:`flash_attention_bwd`
+    at the saved q, k, v and output (the kernels on the card, the plain
+    versions on the CPU); the non-tensor arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, softcap, causal, window, prefix_len):
+        kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
+                  prefix_len=prefix_len)
+        out = flash_attention(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

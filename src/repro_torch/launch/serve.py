@@ -9,7 +9,7 @@
         --requests 8 --slots 4 --prompt-len 2048 --max-new 32 --max-len 4096
 
     # a smoke config on the CPU (plain kernel versions); any arch but
-    # musicgen-large (its audio family is not ported)
+    # musicgen-large (the engine does not serve the audio family: ROADMAP F6)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 
@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.models.model import CausalLM
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 
 
 def main(argv=None):
@@ -57,8 +57,9 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    check_servable(cfg)
     t0 = time.perf_counter()
-    model = CausalLM(cfg, device=args.device, seed=args.seed)
+    model = CausalLM(cfg, device=args.device, seed=args.seed).requires_grad_(False)
     eng = ServeEngine(model, args.slots, args.max_len, seed=args.seed)
     setup = time.perf_counter() - t0
     device = (torch.cuda.get_device_name(model.device)

@@ -5,11 +5,11 @@ masks and a KV cache (the reference's ``repro.models.attention``).
   bias (qwen1.5), partial rotary (chatglm3: fraction 0.5), logit softcap
   and local windows (gemma2), prefix-LM masks (paligemma: bidirectional
   over the prefix).
-* Full self-attention and prefill run on kernel K3
-  (:func:`repro_torch.kernels.flash.flash_attention`) with the config's
-  window and prefix: causal attention with positions 0..S-1 under
-  ``_mask_block``, which is what the reference's ``_attend`` computes for
-  them.
+* Full self-attention and prefill run on kernel K3 with its gradient
+  (:class:`repro_torch.kernels.flash.FlashAttention`: K3 forward, its
+  backward kernel) with the config's window and prefix: causal attention
+  with positions 0..S-1 under ``_mask_block``, which is what the
+  reference's ``_attend`` computes for them.
 * Decode is one query row over the cache in plain torch ops
   (:func:`_attend_dense`, the reference's dense path, window included).
   The reference switches to a blockwise scan for caches longer than 2048;
@@ -125,10 +125,9 @@ def _attend_dense(q, k, v, cfg: AttnConfig, q_pos, k_pos, valid=None):
 
 def _attend(q, k, v, cfg: AttnConfig):
     """Attention over positions 0..S-1 under ``_mask_block`` (causal, the
-    config's window and prefix): kernel K3."""
-    return flash.flash_attention(q, k, v, scale=cfg.scale, softcap=cfg.softcap,
-                                 causal=True, window=cfg.window,
-                                 prefix_len=cfg.prefix_len)
+    config's window and prefix): kernel K3, differentiable."""
+    return flash.FlashAttention.apply(q, k, v, cfg.scale, cfg.softcap, True,
+                                      cfg.window, cfg.prefix_len)
 
 
 # --------------------------------------------------------------------------

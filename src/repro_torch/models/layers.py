@@ -14,9 +14,9 @@ from torch import nn
 
 
 def empty_param(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
-    """An uninitialised parameter (inference only: no gradient)."""
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    """An uninitialised parameter (with a gradient; a server turns that
+    off, ``model.requires_grad_(False)``)."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 @torch.no_grad()
@@ -28,18 +28,27 @@ def param_init(p: torch.Tensor, generator: torch.Generator,
 
 class CastParams(nn.Module):
     """A module whose parameters stay in the parameter dtype and are read
-    in the compute dtype, as the reference's ``p[...].astype(dt)``.  The
-    cast copy is made at the first read and kept: the model is inference
-    only, and its weights are set (init or ``convert``) before that read."""
+    in the compute dtype, as the reference's ``p[...].astype(dt)``.
+
+    A parameter that trains (``requires_grad``) is cast anew at each read,
+    ``p.to(dtype)``: differentiable where autograd records, and no copy
+    outlives the read (an eval between optimizer steps keeps no second
+    set of weights).  A frozen parameter (a server's) has its cast copy
+    kept and reused until the parameter changes: the cache is keyed on
+    the parameter's version counter, which every in-place write
+    (``convert.load_params``, ``init``) moves on."""
 
     def cast(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         p = getattr(self, name)
         if p.dtype == dtype:
             return p
+        if p.requires_grad:
+            return p.to(dtype)
         cache = self.__dict__.setdefault("_cast_cache", {})
-        if (name, dtype) not in cache:
-            cache[(name, dtype)] = p.to(dtype)
-        return cache[(name, dtype)]
+        hit = cache.get((name, dtype))
+        if hit is None or hit[0] != p._version:
+            hit = cache[(name, dtype)] = (p._version, p.detach().to(dtype))
+        return hit[1]
 
     def weights(self, dtype: torch.dtype, keep=()) -> dict[str, torch.Tensor]:
         """This module's own parameters by name, in ``dtype``; those named

@@ -1,6 +1,6 @@
-"""Decoder stacks of every ported family (the reference's
-``repro.models.transformer``): dense and vlm (global attention or gemma2's
-local/global alternation), moe, ssm (rwkv6) and hybrid (zamba2).
+"""Decoder stacks of every family (the reference's
+``repro.models.transformer``): dense, vlm and audio (global attention or
+gemma2's local/global alternation), moe, ssm (rwkv6) and hybrid (zamba2).
 
 The reference scans stacked (L, ...) parameter pytrees with ``lax.scan``;
 here the layers are ``nn.ModuleList``s and the scan is a Python loop.
@@ -29,7 +29,12 @@ returns the states as the reference does (the recurrent ones in float32
 and the compute dtype, the k/v in the cache dtype); decode writes each
 layer's new state into the cache it is given.  A vlm's prefix
 (``prefix_len``) attends bidirectionally in forward and prefill; decode
-is causal.  The audio family raises ``NotImplementedError``.
+is causal.  The audio family's stack is the dense one.
+
+Where autograd records (the trainable dense and audio stacks),
+``stack_forward`` runs each layer under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` around each scanned layer): only the layer
+inputs are kept, and the backward runs each layer's forward again.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     Attention,
@@ -55,7 +61,8 @@ from .mlp import MLP
 from .moe import MoE
 from .rwkv6 import RWKVLayer
 
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+TRAINABLE = ("dense", "audio")
 LORA_RANK = 128      # zamba2's per-invocation adapter rank
 
 
@@ -65,16 +72,42 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES or cfg.layer_pattern not in patterns:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with layer pattern "
-            f"{cfg.layer_pattern!r} is not ported yet; repro_torch serves the "
-            "dense and vlm families with global or local/global attention and "
-            "the moe, ssm (rwkv6) and hybrid (zamba2) families (ROADMAP.md §1 "
-            "queues the audio stub)")
+            f"{cfg.layer_pattern!r} is not ported; repro_torch has the dense "
+            "and vlm families with global or local/global attention, the "
+            "audio family with global attention and the moe, ssm (rwkv6) and "
+            "hybrid (zamba2) families")
     if cfg.layer_pattern == "local_global" and cfg.n_layers % 2:
         raise ValueError(f"{cfg.name}: local/global pairs need an even layer "
                          f"count, got {cfg.n_layers}")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} mamba layers do not split "
                          f"into groups of {cfg.attn_every}")
+
+
+def trainable(cfg: ModelConfig) -> bool:
+    """Whether the port trains this config: the dense and audio families
+    with global attention."""
+    return cfg.family in TRAINABLE and cfg.layer_pattern == "global"
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless :func:`trainable`."""
+    check_supported(cfg)
+    if not trainable(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training covers the dense and audio families with "
+            f"global attention, not family {cfg.family!r} with layer pattern "
+            f"{cfg.layer_pattern!r}; ROADMAP.md §1 queues the other families' "
+            "gradients (gemma2's window and softcap at hd 256, the vlm prefix, "
+            "the MoE aux, the rwkv6/mamba2 scans, zamba2's hd 80)")
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where autograd
+    records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def attn_cfg_for(cfg: ModelConfig, window: int | None, prefix_len: int = 0) -> AttnConfig:
@@ -419,7 +452,7 @@ def stack_forward(layers: nn.Module, x, cfg: ModelConfig, positions,
             x = pair["global"](x, a_glo, positions)
     else:
         for block in layers:
-            x = block(x, acfg, positions)
+            x = _remat(block, x, acfg, positions)
     return x, aux
 
 

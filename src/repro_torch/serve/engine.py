@@ -79,9 +79,24 @@ class _Phase:
         return False
 
 
+def check_servable(cfg) -> None:
+    """Raise for the audio family: the reference's engine cannot serve it
+    (ROADMAP.md §3 F6: its decode step feeds (slots, 1) tokens where the
+    audio embedding takes (slots, 1, K)), and the port's does not either.
+    ``CausalLM.prefill`` and ``decode_step`` take (B, S, K) and (B, 1, K)
+    tokens."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: ServeEngine does not serve the audio family (ROADMAP "
+            "§3 F6: the reference's engine feeds (slots, 1) decode tokens where "
+            "the codebook embedding takes (slots, 1, K)); call CausalLM.prefill "
+            "and decode_step with (B, S, K) and (B, 1, K) tokens instead")
+
+
 class ServeEngine:
     def __init__(self, model: CausalLM, batch_slots: int, max_len: int,
                  cache_dtype=torch.float32, seed: int = 0):
+        check_servable(model.cfg)
         self.model = model
         self.device = model.device
         self.slots = batch_slots

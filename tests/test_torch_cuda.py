@@ -462,6 +462,56 @@ def test_k3_rejects_what_it_cannot_take(dev):
         k3.flash_attention(q, k.bfloat16(), v)
 
 
+# K3's backward kernel: (b, h, kvh, s) x (window, prefix, softcap): G = 1, 2
+# and 12 (starcoder2's), ragged lengths around the 64-row and 64-key tiles,
+# a window of one key and one across tiles, prefixes short of, across and
+# past a tile, all three at once
+K3_BWD_SHAPES = [(1, 2, 2, 64), (2, 4, 2, 200), (1, 24, 2, 129), (1, 4, 2, 1)]
+K3_BWD_MASKS = [(None, 0, None), (1, 0, None), (70, 0, None), (None, 63, None),
+                (None, 130, None), (None, 0, 30.0), (40, 100, 30.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", k3.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("b,h,kvh,s", K3_BWD_SHAPES)
+@pytest.mark.parametrize("window,prefix,softcap", K3_BWD_MASKS)
+def test_k3_bwd_matches_plain(dev, dtype, hd, b, h, kvh, s, window, prefix, softcap):
+    q, k, v = _qkv(dev, dtype, b, s, s, h, kvh, hd)
+    kw = dict(softcap=softcap, window=window, prefix_len=prefix)
+    out = k3.flash_attention(q, k, v, **kw)
+    dout = torch.randn(q.shape, device=dev).to(dtype)
+    before = k3.flash_attention_bwd.launches
+    got = k3.flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert k3.flash_attention_bwd.launches == before + 1
+    x64 = [x.double() for x in (q, k, v, out, dout)]
+    want = k3.flash_attention_bwd_ref(*x64, **kw)
+    bounds = k3.error_bound_bwd(q, k, v, out, dout, want, **kw)
+    for g, w, bound, x in zip(got, want, bounds, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert bool(((g.double() - w).abs() <= bound).all())
+
+
+def test_k3_bwd_through_autograd_and_rejections(dev):
+    q, k, v = (x.requires_grad_() for x in _qkv(dev, torch.bfloat16, 2, 96, 96, 4, 2, 64))
+    out = k3.FlashAttention.apply(q, k, v, None, None, True, None, 0)
+    before = k3.flash_attention_bwd.launches
+    out.float().square().sum().backward()
+    assert k3.flash_attention_bwd.launches == before + 1
+    want = k3.flash_attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(),
+                                  (2 * out.float()).bfloat16())
+    for x, w in zip((q, k, v), want):
+        assert torch.equal(x.grad, w)
+    a, b_, c = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 16)
+    with pytest.raises(ValueError):       # non-causal
+        k3.flash_attention_bwd(a, b_, c, a, a, causal=False)
+    with pytest.raises(ValueError):       # hd 80 waits for zamba2's training
+        x = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 80)
+        k3.flash_attention_bwd(*x, x[0], x[0])
+    with pytest.raises(TypeError):
+        k3.flash_attention_bwd(a, b_, c, a, a.bfloat16())
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "paligemma-3b"])
 def test_local_and_prefix_models_serve_the_cpu_tokens(dev, arch):
     """gemma2's smoke model (window 16, prompts past it, decode past the

@@ -29,6 +29,8 @@ import repro_torch.launch.lbm
 import repro_torch.launch.sim_serve
 import repro_torch.dist.lbm, repro_torch.launch.mesh
 import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
+import repro_torch.optim.adamw, repro_torch.train.step, repro_torch.data.tokens
+import repro_torch.dist.compress, repro_torch.dist.ft, repro_torch.launch.train
 import chip_smoke
 import tools.k3_sass
 bad = sorted(m for m in sys.modules
