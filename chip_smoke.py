@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, in parallel), log each source's registers
-   and spills and, per instantiation, those of K3's Hopper kernel (hd 64,
-   80, 128, 256), check which of K3's kernels each (dtype, hd) launches
+   and spills and, per instantiation, those of K3's Hopper kernels (the
+   forward's and the backward's, at hd 64, 80, 128, 256) and of
+   every kernel that spills, check which of K3's kernels each (dtype, hd) launches
    (read by the profiler: bf16 hd 64/80/128/256 the Hopper kernel, bf16
    hd 16 the mma.sync kernel, float32 the FMA kernel), and print the
    card's name and power limit;
@@ -132,19 +133,25 @@ Phases (any failure exits non-zero and prints no result line):
    mask, or, where gemma2's softcap applies, ``flex_attention`` with the
    softcap as its score_mod and the mask as its block mask;
 8. the training path, after the serving models are freed:
-   (a) K3's backward kernel (``csrc/flash_attn_bwd.cu``) against its
-   plain version on float64 copies of the inputs, dQ, dK and dV element by
-   element within ``kernels.flash.error_bound_bwd``: float32 and bfloat16
-   x hd 16/32/64/128 x G in {1, 2, 12} (2 KV heads) x S = T in {64, 200,
-   1024} x causal, window 70, prefix 130, softcap 30, and all three;
-   (b) the backward at starcoder2-3b's and musicgen-large's layer shapes
-   (B = 2, S = 4096, bf16, causal) against its plain version, element by
-   element and norm-wise, with planted faults (a query head dropped, each
-   row's own 64-key tile left out of dQ) that the checks must reject, timed
-   (median of 50 launches) beside its operations bound (10 hd flops per
-   visible pair and head) and, in turns, beside the backward of
-   ``scaled_dot_product_attention(is_causal=True)`` through autograd (the
-   library yardstick, which the port never calls);
+   (a) K3's backward kernel (``csrc/flash_attn_bwd.cu``), from the lse of
+   K3's forward, against its plain version on float64 copies of the
+   inputs, dQ, dK and dV element by element within
+   ``kernels.flash.error_bound_bwd``: float32 and bfloat16 x hd
+   16/32/64/80/128/256 x G in {1, 2, 12} (2 KV heads) x S = T in {64, 200,
+   1024} x causal, window 70, prefix 130, softcap 30, and all three (bf16
+   at hd 64/80/128/256 runs the Hopper kernels);
+   (b) the backward at the layers of starcoder2-3b, musicgen-large,
+   zamba2-2.7b's shared attention (hd 80) and gemma2-2b's local layer (hd
+   256, window 4096, softcap 50) (B = 2, S = 4096, bf16, causal) against
+   its plain version, element by element and norm-wise, with planted
+   faults (a query head dropped, each row's own 64-key tile left out of
+   dQ) that the checks must reject, timed (median of 50 launches) beside
+   its operations bound (10 hd flops per visible pair and head) and, in
+   turns, beside the backward through autograd of
+   ``scaled_dot_product_attention(is_causal=True)``, or of
+   ``flex_attention`` where the softcap applies (the library yardstick,
+   which the port never calls); its kernels' device time (profiled) and
+   the longest and average block's tile iterations;
    (c) starcoder2-3b trained at full width: ``make_train_step`` on
    ``TokenPipeline`` batches of 2 x 4096 tokens, bf16 compute, float32
    parameters and AdamW state, each layer under ``torch.utils.checkpoint``;
@@ -153,8 +160,9 @@ Phases (any failure exits non-zero and prints no result line):
    make, peak memory, every step's loss and grad norm (finite); K3's
    counters are zeroed just before the timed steps and read just after:
    forward 2 x 30 per step (each layer runs again in the backward),
-   backward 30; one profiled step gives the device idle share and K3's
-   forward and backward shares of device busy time;
+   backward 30; one profiled step gives the device idle share, K3's
+   forward and backward shares of device busy time and the backward's
+   device time by kernel;
    (d) musicgen-large likewise with (B, S, 4) tokens and 3 timed steps,
    after the model-level prefill (2 x 1024 x 4 tokens) and 4 decode steps
    with (B, 1, 4) tokens, whose logits must be finite and (2, 1, 4, 2048)
@@ -164,7 +172,8 @@ Phases (any failure exits non-zero and prints no result line):
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
    at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, and K3's backward,
    ``flash_attention_bwd``, with its launches in starcoder2's timed
-   training steps and its numbers at starcoder2's layer shape), the
+   training steps, its numbers at starcoder2's layer shape, the kernel of
+   each of its widths and its numbers at the other layers of (b)), the
    ``nvidia-smi`` line and, last, the result line ``{"ok": true,
    "device": {...}}``.
 
@@ -308,6 +317,11 @@ K3_BWD_GROUPS = (1, 2, 12)
 K3_BWD_MASKS = ((None, 0, None), (70, 0, None), (None, 130, None), (None, 0, 30.0),
                 (40, 100, 30.0))
 K3_BWD_MAIN = (2, 4096)      # (B, S) of the training runs' layers
+# the layers K3's backward is held and timed at, (B, S) = K3_BWD_MAIN: the
+# two trained models' (starcoder2 G = 12 at hd 128, musicgen hd 64), zamba2's
+# shared attention (hd 80) and gemma2's local layer (hd 256, its window and
+# attention softcap), the widths ROADMAP's next slice trains
+K3_BWD_LAYERS = ("starcoder2-3b", "musicgen-large", "zamba2-2.7b", "gemma2-2b")
 # At those shapes the backward's bf16 outputs are also held norm-wise:
 # ||kernel - plain|| / ||plain|| per output.  Each version rounds every
 # output to bf16 once (at most 2**-8 relative) and the kernel rounds p and
@@ -343,6 +357,21 @@ K3_FWD_NAME, K3_BWD_NAME = "flash_fwd", "flash_bwd"
 K3_KERNEL_OF = {("float32", hd): "flash_fwd_kernel" for hd in (16, 64, 80, 128, 256)} | {
     ("bfloat16", 16): "flash_fwd_mma_kernel"} | {
     ("bfloat16", hd): "flash_fwd_wgmma_kernel" for hd in (64, 80, 128, 256)}
+# the kernels of csrc/flash_attn_bwd.cu that each (dtype, hd) must launch
+# after prep_kernel; the Hopper kernels' grid splits a KV head's group, so
+# they add group_sum_kernel where G > 1
+K3_BWD_KERNELS_OF = {("float32", hd): ("dkdv_kernel", "dq_kernel")
+                     for hd in (16, 32, 64, 80, 128, 256)} | {
+    ("bfloat16", hd): ("dkdv_kernel", "dq_kernel") for hd in (16, 32)} | {
+    ("bfloat16", hd): ("dkdv_wgmma_kernel", "dq_wgmma_kernel") for hd in (64, 80, 128, 256)}
+
+
+def k3_bwd_kernels(dtype: str, hd: int, group: int) -> tuple[str, ...]:
+    """The kernels (sorted names) one K3 backward launch of (dtype, hd)
+    with G = ``group`` must run, from ``K3_BWD_KERNELS_OF``."""
+    main = K3_BWD_KERNELS_OF[dtype, hd]
+    split = group > 1 and "dkdv_wgmma_kernel" in main
+    return tuple(sorted(("prep_kernel", *main) + (("group_sum_kernel",) if split else ())))
 
 
 def model_mask(cfg) -> str:
@@ -578,24 +607,26 @@ def collision_flops_per_node(q: int, e: np.ndarray, mrt: bool) -> int:
     return flops + (q * q * 2 + q * 2 if mrt else q * 3)
 
 
-def k3_bwd_dq_faults(q, k, v, out, dout, tile: int = 64):
-    """dQ of causal attention (bf16 inputs, the plain version's float32
-    math) twice: whole, and with each query's own ``tile``-key tile left out
-    of dS K, as a kernel that skipped the diagonal tile of its loop over key
-    tiles would give (a planted fault)."""
+def k3_bwd_dq_faults(q, k, v, out, dout, tile: int = 64, **kw):
+    """dQ of causal attention with the mask keywords ``kw`` (bf16 inputs,
+    the plain version's float32 math) twice: whole, and with each query's
+    own ``tile``-key tile left out of dS K, as a kernel that skipped the
+    diagonal tile of its loop over key tiles would give (a planted
+    fault)."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    scale = hd ** -0.5
+    scale = kw.get("scale") or hd ** -0.5
     qg = q.float().reshape(b, s, kvh, h // kvh, hd)
     pos = torch.arange(s, device=q.device)
-    p = torch.einsum("bskgd,btkd->bkgst", qg * scale, k.float())
-    p.masked_fill_(pos[None, :] > pos[:, None], float("-inf"))
-    p = torch.softmax(p, dim=-1)
+    p, dcap = k3._probs(q, k, **{**kw, "scale": scale})
     do = dout.float().reshape(qg.shape)
     ds = torch.einsum("bskgd,btkd->bkgst", do, v.float())
     ds -= (do * out.float().reshape(qg.shape)).sum(-1).permute(0, 2, 3, 1)[..., None]
     ds *= p
     del p
+    if dcap is not None:
+        ds *= dcap
+    del dcap
     whole = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
     ds.masked_fill_((pos[:, None] // tile) != (pos[None, :] // tile), 0.0)
     fault = whole - torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
@@ -648,6 +679,61 @@ def library_attention(q, k, v, *, scale, softcap, window, prefix_len):
                                           enable_gqa=True).transpose(1, 2)
 
 
+def library_attention_bwd(q, k, v, dout, *, scale, softcap, window, prefix_len):
+    """(name, fn): the backward through autograd of ``library_attention``'s
+    call on these inputs -- the library yardstick of K3's backward, which
+    the port never calls: fn returns the gradients of q, k and v (in the
+    library's layout) for ``dout``."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    name, fwd = library_attention(*leaves, scale=scale, softcap=softcap, window=window,
+                                  prefix_len=prefix_len)
+    out = fwd()
+    return name, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def bwd_block_work(s: int, t: int, hd: int, group: int, window: int | None = None,
+                   prefix_len: int = 0) -> dict:
+    """Tile iterations per block of K3's bf16 backward kernels (causal, S x
+    T, G = ``group`` query heads a KV head), counted from their loops as
+    ``csrc/flash_attn_bwd.cu`` runs them: the Hopper dK/dV blocks (one
+    query head) own 128 keys (64 at hd 256) and loop over the 64-query
+    tiles that see them (``query_range``), the dQ blocks own 128 queries
+    and loop over 64-key tiles (``key_range``); the mma.sync kernel has
+    64-key and 64-query blocks, and its dK/dV block (one KV head) walks the
+    G query heads.
+    Returns {kernel: (longest, average)}."""
+    def q_range(k0, k1):
+        begin, end = k0, (min(s, k1 - 1 + window) if window else s)
+        if k0 < prefix_len:
+            begin, end = 0, max(end, min(prefix_len, s))
+        return begin, end
+
+    def k_range(q0, q1):
+        end, begin = min(t, q1), (max(0, q0 - window + 1) if window else 0)
+        if q0 < prefix_len:
+            end, begin = max(end, min(prefix_len, t)), 0
+        return begin, end
+
+    def tiles(r, size):
+        return max(0, -(-r[1] // size) - r[0] // size) if r[0] < r[1] else 0
+
+    hopper = hd in k3.BWD_HOPPER_HEAD_DIMS
+    kb, qb = ((64 if hd > 128 else 128), 128) if hopper else (64, 64)
+    heads = 1 if hopper else group
+    dkdv = [heads * tiles(q_range(k0, min(k0 + kb, t)), 64) for k0 in range(0, t, kb)]
+    dq = [tiles(k_range(q0, min(q0 + qb, s)), 64) for q0 in range(0, s, qb)]
+    return {"dkdv": (max(dkdv), sum(dkdv) / len(dkdv)), "dq": (max(dq), sum(dq) / len(dq))}
+
+
+def bound_ratio(err: torch.Tensor, bound: torch.Tensor) -> float:
+    """max over elements of |err| / bound, an element within its bound at
+    or below 1: one with no error counts 0 where its bound is 0 too (a
+    bound of one term, such as dV under a window of one key, is 0 where an
+    input element is exactly 0, which a seeded draw can give)."""
+    err = err.abs()
+    return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
+
+
 def k3_error(q, k, v, got, want, kw: dict) -> tuple[float, float]:
     """(max |got - want|, max of |got - want| / K3's error bound over the
     elements): K3 is within tolerance when the second is at most 1."""
@@ -655,33 +741,64 @@ def k3_error(q, k, v, got, want, kw: dict) -> tuple[float, float]:
     return float(d.max()), float((d / k3.error_bound(q, k, v, want, **kw)).max())
 
 
-def hopper_resources(text: str) -> list[tuple[str, int, int]]:
-    """(hd / causal / softcap, registers, spill store + load bytes) of each
-    instantiation of K3's Hopper kernel in an ``nvcc -Xptxas -v`` log."""
-    out, kern = [], None
+def kernel_resources(text: str) -> list[tuple[str, int, int]]:
+    """(mangled name, registers, spill store + load bytes) of each kernel
+    in an ``nvcc -Xptxas -v`` log."""
+    out, kern, spill = [], None, 0
     for line in text.splitlines():
-        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
-        if "Compiling entry" in line:
-            kern = (f"hd={m.group(1)} causal={m.group(2)} softcap={m.group(3)}"
-                    if m else None)
-            spill = 0
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kern, spill = m.group(1), 0
         elif kern and "bytes spill" in line:
             spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
         elif kern and "Used" in line:
-            out.append((kern, int(re.search(r"Used (\d+) registers", line).group(1)),
-                        spill))
+            out.append((kern, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
             kern = None
     return out
 
 
-def k3_kernel_names(calls) -> list[str | None]:
-    """The device kernel of K3 that each of ``calls`` (one K3 launch each)
-    ran, read by the profiler: each call synchronises and is preceded by a
-    marker kernel, and the K3 kernel between marker i and marker i + 1 on
-    the device's clock is call i's (the host's clock can be milliseconds
-    off the device records).  None where the profiler saw none, and for
-    every call when a marker's record was lost.  Each call runs once
-    before the session."""
+def sass_functions(lib: Path) -> dict[str, list[str]]:
+    """``cuobjdump -sass`` of a built library: each function's SASS lines
+    (instructions and their encodings, runs of blanks made one), keyed by
+    its mangled name."""
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = m.group(1)
+            out[key] = []
+        elif key and line.strip():
+            out[key].append(" ".join(line.split()))
+    return out
+
+
+def hopper_resources(text: str) -> list[tuple[str, int, int]]:
+    """(kernel hd= [causal=] softcap=, registers, spill bytes) of each
+    instantiation of K3's Hopper kernels (the forward's
+    ``flash_fwd_wgmma_kernel``, the backward's ``dkdv_wgmma_kernel`` and
+    ``dq_wgmma_kernel``) in an ``nvcc -Xptxas -v`` log."""
+    out = []
+    for name, regs, spill in kernel_resources(text):
+        m = re.search(r"([a-z_]+_wgmma_kernel)ILi(\d+)E((?:Lb\dE)+)", name)
+        if m:
+            flags = re.findall(r"Lb(\d)E", m.group(3))
+            keys = ("causal", "softcap")[-len(flags):]
+            out.append((f"{m.group(1)} hd={m.group(2)} "
+                        + " ".join(f"{k}={f}" for k, f in zip(keys, flags)), regs, spill))
+    return out
+
+
+def k3_kernel_names(calls, part: str = K3_FWD_NAME) -> list[tuple[str, ...] | None]:
+    """The device kernels of K3 (those whose name holds ``part``) that each
+    of ``calls`` ran, read by the profiler: each call synchronises and is
+    preceded by a marker kernel, and the kernels between marker i and
+    marker i + 1 on the device's clock are call i's (the host's clock can
+    be milliseconds off the device records); their distinct names, sorted.
+    None where the profiler saw none, and for every call when a marker's
+    record was lost.  Each call runs once before the session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -693,16 +810,16 @@ def k3_kernel_names(calls) -> list[str | None]:
             torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
-    groups: list[list[str]] = []
+    groups: list[set[str]] = []
     for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
                           if e.device_type == DeviceType.CUDA):
         if MARKER_KERNEL in name:
-            groups.append([])
-        elif "flash_fwd" in name and groups:
-            groups[-1].append(re.sub(r"<.*", "", name).split("::")[-1])
+            groups.append(set())
+        elif part in name and groups:
+            groups[-1].add(re.sub(r"[<(].*", "", name).split("::")[-1])
     if len(groups) != len(calls):
         return [None] * len(calls)
-    return [g[0] if len(g) == 1 else None for g in groups]
+    return [tuple(sorted(g)) or None for g in groups]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
@@ -721,6 +838,7 @@ class Smoke:
         self.kernels: dict[str, dict] = {}
         self.sharded: dict[tuple, dict] = {}
         self.k3_bwd: dict[str, dict] = {}
+        self.k3_bwd_kernels: dict[str, dict] = {}
         self.train: dict[str, dict] = {}
 
     # ------------------------------------------------------------ phase 1
@@ -738,10 +856,26 @@ class Smoke:
             for line in text.splitlines():   # ptxas warnings, wgmma serialisation
                 if re.search(r"warning|Performance Loss", line, re.I):
                     log(f"[build] {name}: {line.strip()}")
-        for kern, regs, spill in hopper_resources(logs.get("flash_attn", "")):
+        for kern, regs, spill in hopper_resources(logs.get("flash_attn", "")
+                                                  + logs.get("flash_attn_bwd", "")):
             log(f"[build] K3 Hopper kernel {kern}: {regs} registers per thread at "
                 f"launch (consumers raise theirs to 240 with setmaxnreg), "
                 f"{spill} bytes spilled")
+        for name, text in logs.items():
+            for kern, regs, spill in kernel_resources(text):
+                if spill:
+                    log(f"[build] {name}: {kern} spills {spill} bytes ({regs} registers)")
+        # K3's backward Hopper kernels run their products on wgmma: each
+        # instantiation's SASS must hold HGMMA instructions
+        hgmma = {}
+        for fn, lines in sass_functions(build.library_path("flash_attn_bwd")).items():
+            m = re.search(r"([a-z_]+_wgmma_kernel)ILi(\d+)ELb(\d)E", fn)
+            if m:
+                hgmma[f"{m.group(1)} hd={m.group(2)} softcap={m.group(3)}"] = sum(
+                    "HGMMA" in line for line in lines)
+        log(f"[build] HGMMA instructions in K3's backward Hopper kernels: {json.dumps(hgmma)}")
+        if len(hgmma) != 4 * len(k3.BWD_HOPPER_HEAD_DIMS) or not all(hgmma.values()):
+            raise AssertionError(f"K3's backward Hopper kernels without wgmma: {hgmma}")
         k1._lib()
         k2._lib()
         k3._lib()
@@ -758,13 +892,36 @@ class Smoke:
             if None not in names:
                 break
         log("[K3 kernels] " + "; ".join(
-            f"{dtype} hd={hd}: {name or 'not seen by the profiler'}"
+            f"{dtype} hd={hd}: {', '.join(name or ['not seen by the profiler'])}"
             for (dtype, hd), name in zip(combos, names)))
         wrong = [f"{dtype} hd={hd}: {name}" for (dtype, hd), name in zip(combos, names)
-                 if name != K3_KERNEL_OF[dtype, hd]]
+                 if name != (K3_KERNEL_OF[dtype, hd],)]
         if wrong:
             raise AssertionError(f"K3 launched another kernel than csrc/flash_attn.cu's "
                                  f"dispatch names (or the profiler missed it): {wrong}")
+        # the same for K3's backward (G = 2), the kernels line's head_dims
+        combos = list(K3_BWD_KERNELS_OF)
+        calls = []
+        for dtype, hd in combos:
+            q, k, v = self._qkv(gen, getattr(torch, dtype), 1, 200, 4, 2, hd)
+            out, lse = k3.flash_attention(q, k, v, return_lse=True)
+            calls.append(lambda x=(q, k, v, out, torch.randn_like(out), lse):
+                         k3.flash_attention_bwd(*x))
+        for _ in range(3):
+            names = k3_kernel_names(calls, K3_BWD_NAME)
+            if None not in names:
+                break
+        for (dtype, hd), name in zip(combos, names):
+            self.k3_bwd_kernels.setdefault(str(hd), {})[dtype] = ", ".join(
+                name or ["not seen by the profiler"])
+        log(f"[K3 bwd kernels] G=2: {json.dumps(self.k3_bwd_kernels)}")
+        wrong = [f"{dtype} hd={hd}: {name}" for (dtype, hd), name in zip(combos, names)
+                 if name != k3_bwd_kernels(dtype, hd, 2)]
+        if wrong:
+            raise AssertionError(f"K3's backward launched other kernels than "
+                                 f"csrc/flash_attn_bwd.cu's dispatch names (or the profiler "
+                                 f"missed them): {wrong}")
+        del calls
 
     # ---------------------------------------------------- phase 2 and 3
     def _small_state(self, geometry, lat, dtype):
@@ -2003,7 +2160,8 @@ class Smoke:
     # ------------------------------------------------------------ phase 8
     def kernel_line_bwd(self) -> None:
         """K3's backward in the kernels line: its launches in starcoder2's
-        timed training steps, its numbers at starcoder2's layer shape."""
+        timed training steps, its numbers at starcoder2's layer shape, and
+        each width's kernel with its numbers at the other layers."""
         t = self.k3_bwd["starcoder2-3b"]
         run = self.train["starcoder2-3b"]
         self.kernels["flash_attention_bwd"] = {
@@ -2013,12 +2171,17 @@ class Smoke:
             "launches": run["bwd_launches"], "max_abs_err": t["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "model": "starcoder2-3b",
-            "launches_per_step": run["bwd_launches"] / run["steps"]}
+            "launches_per_step": run["bwd_launches"] / run["steps"],
+            "head_dims": self.k3_bwd_kernels,
+            "layers": {arch: {key: r[key] for key in ("hd", "kernels", "ms", "library",
+                                                      "library_ms", "bound_ms", "max_abs_err")}
+                       for arch, r in self.k3_bwd.items()}}
 
     def check_k3_bwd_matrix(self) -> None:
         """K3's backward kernel against its plain version on float64
         copies of the inputs, element by element within
-        ``error_bound_bwd``, for dQ, dK and dV."""
+        ``error_bound_bwd``, for dQ, dK and dV, from the lse of K3's
+        forward."""
         gen = torch.Generator(device=self.dev).manual_seed(2)
         worst, count = {}, 0
         for dtype in (torch.float32, torch.bfloat16):
@@ -2029,8 +2192,8 @@ class Smoke:
                         dout = torch.randn(q.shape, generator=gen, device=self.dev).to(dtype)
                         for window, prefix, cap in K3_BWD_MASKS:
                             kw = dict(softcap=cap, window=window, prefix_len=prefix)
-                            out = k3.flash_attention(q, k, v, **kw)
-                            got = k3.flash_attention_bwd(q, k, v, out, dout, **kw)
+                            out, lse = k3.flash_attention(q, k, v, return_lse=True, **kw)
+                            got = k3.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
                             torch.cuda.synchronize()
                             want = k3.flash_attention_bwd_ref(
                                 *(x.double() for x in (q, k, v, out, dout)), **kw)
@@ -2038,7 +2201,7 @@ class Smoke:
                             tag = f"{str(dtype).split('.')[1]} hd={hd}"
                             for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
                                 d = (g.to(w.dtype) - w).abs()
-                                ratio = float((d / bd).max())
+                                ratio = bound_ratio(d, bd)
                                 worst[tag] = max(worst.get(tag, 0.0), ratio)
                                 if not ratio <= 1.0:
                                     raise AssertionError(
@@ -2046,34 +2209,41 @@ class Smoke:
                                         f"prefix={prefix} softcap={cap}: {name} max |err| "
                                         f"{float(d.max()):.3e}, {ratio:.3f} of the bound")
                             count += 1
-                        del q, k, v, dout, out, got, want, bounds
+                        del q, k, v, dout, out, lse, got, want, bounds
         log(f"[K3 bwd vs plain] {count} cases (dq, dk, dv each) within "
             f"error_bound_bwd; worst |err| / bound over elements: {json.dumps(worst)}")
 
     def k3_bwd_main_shapes(self) -> None:
-        """K3's backward kernel at starcoder2-3b's and musicgen-large's
-        layer shapes (B = 2, S = 4096, bf16, causal): against its plain
-        version (the kernels line's max_abs_err: starcoder2's) element by
-        element within ``error_bound_bwd`` and norm-wise within
-        ``K3_BWD_NORM_REL``, with planted faults that must fail one of the
-        two (the plain version's gradients of a wrong function), timed
-        (median of 50 launches) beside its operations bound (10 hd flops
-        per visible (query, key) pair and head, at the dense bf16 peak),
-        the plain version and the library yardstick, which the port never
-        calls: the backward of ``scaled_dot_product_attention(is_causal=
-        True)`` through autograd, timed in turns with the kernel."""
+        """K3's backward kernel at the layers of ``K3_BWD_LAYERS`` (B = 2,
+        S = 4096, bf16, causal; gemma2's with its window and softcap):
+        against its plain version (the kernels line's max_abs_err:
+        starcoder2's) element by element within ``error_bound_bwd`` and
+        norm-wise within ``K3_BWD_NORM_REL``, with planted faults that must
+        fail one of the two (the plain version's gradients of a wrong
+        function), timed (median of 50 launches) beside its operations
+        bound (10 hd flops per visible (query, key) pair and head, at the
+        dense bf16 peak), the plain version and the library yardstick,
+        which the port never calls: the backward through autograd of
+        ``scaled_dot_product_attention(is_causal=True)``, or of
+        ``flex_attention`` where the softcap applies, timed in turns with
+        the kernel; its kernels' device time from a profiler pass, and the
+        longest and average block's tile iterations."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
         gen = torch.Generator(device=self.dev).manual_seed(3)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        for arch in ("starcoder2-3b", "musicgen-large"):
+        for arch in K3_BWD_LAYERS:
             cfg = get_config(arch)
             (b, s), h, kvh, hd = K3_BWD_MAIN, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            kw = dict(scale=cfg.query_scale or hd ** -0.5, softcap=cfg.attn_softcap,
+                      window=cfg.local_window, prefix_len=0)
             q, k, v = self._qkv(gen, torch.bfloat16, b, s, h, kvh, hd)
             dout = torch.randn(q.shape, generator=gen, device=self.dev).to(torch.bfloat16)
-            out = k3.flash_attention(q, k, v)
-            got = k3.flash_attention_bwd(q, k, v, out, dout)
+            out, lse = k3.flash_attention(q, k, v, return_lse=True, **kw)
+            got = k3.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
             torch.cuda.synchronize()
-            want = k3.flash_attention_bwd_ref(q, k, v, out, dout)
-            bounds = k3.error_bound_bwd(q, k, v, out, dout, want)
+            want = k3.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+            bounds = k3.error_bound_bwd(q, k, v, out, dout, want, **kw)
 
             def held(outs, names=("dq", "dk", "dv")):
                 """{name: (worst |x - plain| / bound, ||x - plain|| / ||plain||)}"""
@@ -2082,8 +2252,7 @@ class Smoke:
                     i = ("dq", "dk", "dv").index(name)
                     w = want[i].float()
                     d = x.float() - w
-                    res[name] = (float((d.abs() / bounds[i]).max()),
-                                 float(d.norm() / w.norm()))
+                    res[name] = (bound_ratio(d, bounds[i]), float(d.norm() / w.norm()))
                 return res
 
             got_held = held(got)
@@ -2101,9 +2270,9 @@ class Smoke:
             dropped = dout.clone()
             dropped[:, :, 0] = 0
             faults = {"head 0 dropped": held(
-                k3.flash_attention_bwd_ref(q, k, v, out, dropped))}
+                k3.flash_attention_bwd_ref(q, k, v, out, dropped, **kw))}
             del dropped
-            dq_whole, dq_fault = k3_bwd_dq_faults(q, k, v, out, dout)
+            dq_whole, dq_fault = k3_bwd_dq_faults(q, k, v, out, dout, **kw)
             rebuilt = held([dq_whole], ("dq",))["dq"]
             if not (rebuilt[0] <= 1.0 and rebuilt[1] <= K3_BWD_NORM_REL):
                 raise AssertionError(f"k3_bwd_dq_faults' whole dQ is not the plain "
@@ -2118,30 +2287,62 @@ class Smoke:
             if missed:
                 raise AssertionError(f"K3 bwd checks at {arch}'s layer shape pass planted "
                                      f"faults: {missed}")
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-            dot = dout.transpose(1, 2)
-            times = interleaved_ms({
-                "kernel": lambda: k3.flash_attention_bwd(q, k, v, out, dout),
-                "sdpa": lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                    retain_graph=True)})
-            ms = time_ms(lambda: k3.flash_attention_bwd(q, k, v, out, dout), 50,
-                         label=f"K3 bwd {arch}")
-            plain_ms = time_ms(lambda: k3.flash_attention_bwd_ref(q, k, v, out, dout), 3,
-                               warm=1, label="K3 bwd plain")
-            pairs = b * s * (s + 1) / 2                  # visible, per head
-            flops = 10.0 * hd * h * pairs
+            lib_name, lib_fn = library_attention_bwd(q, k, v, dout, **kw)
+
+            def kernel():
+                return k3.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+
+            times = interleaved_ms({"kernel": kernel, "library": lib_fn})
+            ms = time_ms(kernel, 50, label=f"K3 bwd {arch}")
+            plain_ms = time_ms(lambda: k3.flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw),
+                               3, warm=1, label="K3 bwd plain")
+            # the profiler can lose the records of a session's first kernels,
+            # so each kernel's time is the mean over the launches it traced;
+            # every kernel the dispatch names must be traced (a pass that
+            # lost one is repeated, 3 at most), and no other
+            expect = k3_bwd_kernels("bfloat16", hd, h // kvh)
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(8):
+                        kernel()
+                    torch.cuda.synchronize()
+                traced_us = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA and K3_BWD_NAME in e.name:
+                        part = re.sub(r"[<(].*", "", e.name).split("::")[-1]
+                        traced_us.setdefault(part, []).append(
+                            e.time_range.end - e.time_range.start)
+                if tuple(sorted(traced_us)) == expect:
+                    break
+            if tuple(sorted(traced_us)) != expect:
+                raise AssertionError(f"K3 bwd at {arch}'s layer shape: the profiler traced "
+                                     f"{sorted(traced_us)}, the dispatch names {expect}")
+            split = {part: float(np.mean(us)) / 1e3 for part, us in traced_us.items()}
+            window = kw["window"] if kw["window"] and kw["window"] < s else None
+            work = bwd_block_work(s, s, hd, h // kvh, window=window)
+            pos = torch.arange(s, device=self.dev)
+            pairs = b * float(k3.visible_mask(pos, pos, window=kw["window"]).sum())
+            flops = 10.0 * hd * h * pairs               # visible, per head
             nbytes = 2 * (4 * q.numel() + 4 * k.numel())  # q, o, dO, dq; k, v, dk, dv
             bms, by = bound(nbytes, flops, torch.bfloat16)
-            log(f"[K3 bwd {arch} B={b} S={s} H={h} KVH={kvh} hd={hd} bf16 causal] |err| "
-                f"{err:.3e} ({ratio:.3f} of the bound, norm-wise {norm:.3e}); {ms:.4f} ms/launch = "
-                f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}, "
-                f"{bms / ms:.4f} of it); in turns with SDPA's backward: kernel "
-                f"{times['kernel']:.4f} ms, SDPA {times['sdpa']:.4f} ms (the kernel takes "
-                f"{times['kernel'] / times['sdpa']:.2f}x SDPA's time); plain {plain_ms:.3f} ms")
-            self.k3_bwd[arch] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                                 "bound_by": by, "library_ms": times["sdpa"]}
-            del q, k, v, dout, out, qt, kt, vt, o, dot
+            shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} bf16 causal"
+                     + (f" window={kw['window']}" if kw["window"] else "")
+                     + (f" softcap={kw['softcap']}" if kw["softcap"] else ""))
+            log(f"[K3 bwd {arch} {shape}] |err| {err:.3e} ({ratio:.3f} of the bound, "
+                f"norm-wise {norm:.3e}); {ms:.4f} ms/launch = {flops / ms / 1e9:.1f} TFLOP/s "
+                f"(bound {bms:.4f} ms by {by}, {bms / ms:.4f} of it); in turns with "
+                f"{lib_name}'s backward: kernel {times['kernel']:.4f} ms, {lib_name} "
+                f"{times['library']:.4f} ms (the kernel takes "
+                f"{times['kernel'] / times['library']:.2f}x its time); plain {plain_ms:.3f} "
+                f"ms; by kernel (profiled, ms): "
+                + ", ".join(f"{k_} {v_:.4f} ({len(traced_us[k_])} of 8 traced)"
+                            for k_, v_ in split.items())
+                + "; tile iterations per block (longest, average): "
+                + ", ".join(f"{k_} {m_} / {a_:.1f}" for k_, (m_, a_) in work.items()))
+            self.k3_bwd[arch] = {"hd": hd, "kernels": ", ".join(expect), "err": err, "max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                 "library": lib_name, "library_ms": times["library"]}
+            del q, k, v, dout, out, lse, lib_fn
 
     def train_main(self, run: "TrainRun") -> None:
         """``make_train_step`` on ``TokenPipeline`` batches at full width:
@@ -2229,8 +2430,11 @@ class Smoke:
         busy_ms = busy_us(dev) / 1e3
         fwd_ms = sum(b - a for a, b, n in dev if K3_FWD_NAME in n) / 1e3
         bwd_ms = sum(b - a for a, b, n in dev if K3_BWD_NAME in n) / 1e3
-        parts = {part: sum(b - a for a, b, n in dev if K3_BWD_NAME in n and part in n) / 1e3
-                 for part in ("prep_kernel", "dkdv_kernel", "dq_kernel")}
+        parts = {}
+        for a, b, n in dev:
+            if K3_BWD_NAME in n:
+                part = re.sub(r"[<(].*", "", n).split("::")[-1]
+                parts[part] = parts.get(part, 0.0) + (b - a) / 1e3
         log(f"[profile train {run.arch}] one step: {len(dev)} device ops, device busy "
             f"{busy_ms:.2f} ms of {step_ms:.2f} ms unprofiled (idle share "
             f"{1 - busy_ms / step_ms:.4f}); K3 forward {fwd_ms:.2f} ms = "

@@ -13,7 +13,10 @@
 // t > s - W (gemma2), and a bidirectional prefix P lets every query s < P
 // see every key t < P (paligemma); see causal_visible.  Each block loops
 // over the key tiles that some row of it can see (key_range), so a
-// windowed block starts at its window's first tile.
+// windowed block starts at its window's first tile.  Given a pointer, every
+// kernel also writes each row's log-sum-exp m + log l (natural-log units;
+// 0 for a row that sees no key), which the backward (flash_attn_bwd.cu)
+// reads instead of recomputing the logits; serving passes none.
 //
 // What differs from the TPU version:
 // - GQA: query head h reads K/V of KV head h / (H / KVH) in place; the
@@ -62,6 +65,7 @@
 
 #include "async_copy.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace flash {
@@ -133,13 +137,21 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// A row's log-sum-exp of its logits in natural-log units, from its running
+// max m and sum l (m in natural-log units), for the backward; 0 for a row
+// that sees no key (l == 0), which the backward never reads.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : 0.f;
+}
+
 // q, out: (B, S, H, HD); k, v: (B, Tk, KVH, HD); all contiguous.
 // grid: (ceil(S / BQ), H, B).
 template <typename T, int HD, bool CAUSAL, bool SOFTCAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-                 int H, int KVH, float scale, float cap, int window, int prefix) {
+                 int H, int KVH, float scale, float cap, int window, int prefix,
+                 float* __restrict__ lse) {
   using L = Smem<T, HD>;
   constexpr int OC = HD >= 16 ? HD / 16 : 1;   // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -268,6 +280,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = cg + 16 * o;
       if (HD >= 16 || col < HD) o_row[col] = from_float<T>(acc[i][o] / l);
     }
+    if (lse != nullptr && cg == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + s] = row_lse(m_run[i], l_run[i]);
   }
 }
 
@@ -345,7 +359,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int S, int Tk, int H, int KVH,
-                     float scale, float cap, int window, int prefix) {
+                     float scale, float cap, int window, int prefix, float* __restrict__ lse) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -467,6 +481,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int d = 0; d < ND; ++d)
       *reinterpret_cast<__nv_bfloat162*>(o_row + d * 8 + 2 * t) =
           __floats2bfloat162_rn(o[d][2 * r] / l, o[d][2 * r + 1] / l);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + s_row] = row_lse(m_run[r], l_run[r]);
   }
 }
 
@@ -523,12 +539,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // --------------------------------------------------------------------------
 namespace hopper {
 
+using namespace sm90;   // TMA, descriptors, wgmma products (hopper.cuh)
+
 constexpr int BQ = 128;          // query rows per block
 constexpr int NT = 384;          // threads per block
 constexpr int STAGES = 2;        // K/V ring depth
-constexpr int CW = 64;           // columns per 128-byte swizzle chunk
-constexpr int TW = 16;           // columns of the tail chunk (hd 80), 32-byte swizzle
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
@@ -543,198 +558,6 @@ struct Cfg {
   static constexpr size_t bytes = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-// One box of a 4-D tensor map into shared memory; completion is counted on
-// the barrier in bytes.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t bar, uint32_t dst,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address >> 4 (bits 0-13),
-// leading byte offset >> 4 (16-29), stride byte offset >> 4 (32-45),
-// layout type (62-63): 0 none, 1 = SWIZZLE_128B, 2 = SWIZZLE_64B, 3 =
-// SWIZZLE_32B.  With the 128-byte swizzle, K-major operands (Q, K: rows of
-// 128 bytes along hd) step 8-row groups by the stride offset (1024 B) and
-// ignore the leading offset; the MN-major V steps 8-key groups by the
-// stride offset (1024 B) and 64-column chunks of hd by the leading offset
-// (one chunk = BK rows of 128 B).  With the 32-byte swizzle (hd 80's tail
-// chunk, rows of 32 bytes: one k-step of Q or K, all 16 columns of V) an
-// 8-row group is 256 B, the stride offset, and the leading offset is
-// unused for both majors.
-constexpr uint32_t SW128 = 1, SW32 = 3;
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the wait that releases them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// D (64 x N, float32 in registers) = or += A (64 x 16) B (16 x N).
-// wgmma_ss: A and B K-major in shared memory; scale_d = 0 overwrites D.
-// wgmma_rs: A in registers (the m16n8k16 A fragment of this warp's 16
-// rows), B MN-major in shared memory (transpose bit set); accumulates.
-// The accumulator of thread (warp w, lane 4g + t) holds, at index
-// 4j + e, row 16w + g + 8(e / 2), column 8j + 2t + e % 2.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x in one special-function instruction; results below 2^-126 flush to
-// 0 (exp2f also handles subnormal results, at extra instructions).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers 1 and 2 (0 is __syncthreads), 256 threads: the two
 // consumer warpgroups take turns issuing their wgmmas.
 __device__ __forceinline__ void named_sync(int id) {
@@ -742,53 +565,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// S = Q K_j^T for this warpgroup's 64 rows: 4 k-steps per 128-byte chunk,
-// each 32 bytes further into a 128-byte swizzled row, and at hd 80 a fifth
-// over the tail chunk (q_tail: this warpgroup's rows there).
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::BK / 2], uint32_t q_rows,
-                                         uint32_t q_tail, uint32_t k_tile) {
-  constexpr int BK = Cfg<HD>::BK;
-#pragma unroll
-  for (int kk = 0; kk < Cfg<HD>::NCH * 4; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(s, smem_desc(q_rows + (kk / 4) * BQ * 128 + off, 16, 1024, SW128),
-             smem_desc(k_tile + (kk / 4) * BK * 128 + off, 16, 1024, SW128), kk > 0);
-  }
-  if constexpr (Cfg<HD>::TAIL)
-    wgmma_ss(s, smem_desc(q_tail, 16, 256, SW32),
-             smem_desc(k_tile + Cfg<HD>::NCH * BK * 128, 16, 256, SW32), 1);
-}
-
-// O += P V_j: BK / 16 k-steps of 16 keys (2048 bytes of V each; at hd 80
-// 2048 of the 64-column chunk into o[0..31] and 512 of the tail into
-// o[32..39], the register order of one n80 accumulator).
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&p)[Cfg<HD>::BK / 16][4],
-                                         uint32_t v_tile) {
-  constexpr int BK = Cfg<HD>::BK;
-  if constexpr (Cfg<HD>::TAIL) {
-    float(&o_main)[CW / 2] = *reinterpret_cast<float(*)[CW / 2]>(o);
-    float(&o_tail)[TW / 2] = *reinterpret_cast<float(*)[TW / 2]>(o + CW / 2);
-    const uint32_t v_tail = v_tile + BK * 128;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs(o_main, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024, SW128));
-      wgmma_rs(o_tail, p[kk], smem_desc(v_tail + kk * 16 * 32, 16, 256, SW32));
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024, SW128));
-  }
 }
 
 // Whether every key of the tile [k0, k0 + BK) is visible to every row of
@@ -875,15 +651,6 @@ __device__ __forceinline__ void softmax_any(bool mask, float (&s)[NS], float (&m
                                              scale_log2, scale, cap);
 }
 
-// p in bfloat16 as the A fragments of P V: the accumulator entries
-// 8kk .. 8kk + 7 are keys 16kk .. 16kk + 15 in the fragment's order.
-template <int NS>
-__device__ __forceinline__ void to_bf16(const float (&s)[NS], uint32_t (&p)[NS / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NS / 8; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-}
 
 // q, out: (B, S, H, HD); k, v: (B, Tk, KVH, HD); bf16, described by the
 // tensor maps (see encode): tm_q, tm_k and tm_v for the 64-column chunks,
@@ -900,7 +667,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        int B, float scale, float cap, int window, int prefix,
                        const __grid_constant__ CUtensorMap tm_q_tail,
                        const __grid_constant__ CUtensorMap tm_k_tail,
-                       const __grid_constant__ CUtensorMap tm_v_tail) {
+                       const __grid_constant__ CUtensorMap tm_v_tail,
+                       float* __restrict__ lse) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, NCH = C::NCH;
   extern __shared__ unsigned char smem_raw[];
@@ -1015,7 +783,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(k_full(0), 0);
       named_sync(wg);
       wgmma_fence();
-      issue_qk<HD>(s, q_rows, q_tail, k_s);
+      issue_ss<HD, BQ, BK>(s, q_rows, q_tail, k_s);
       wgmma_commit();
       named_arrive(3 - wg);
       wgmma_wait<0>();
@@ -1031,9 +799,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(v_full(prev), ((i - 1) / STAGES) & 1);
       named_sync(wg);
       wgmma_fence();                      // p and o were written by ordinary code
-      issue_qk<HD>(s, q_rows, q_tail, k_s + st * C::KV_BYTES);
+      issue_ss<HD, BQ, BK>(s, q_rows, q_tail, k_s + st * C::KV_BYTES);
       wgmma_commit();
-      issue_pv<HD>(o, p, v_s + prev * C::KV_BYTES);
+      issue_rs<HD, BK>(o, p, v_s + prev * C::KV_BYTES);
       wgmma_commit();
       named_arrive(3 - wg);
       wgmma_wait<1>();                    // S_j is done; P_{j-1} V_{j-1} may still run
@@ -1054,7 +822,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(v_full(st), (i / STAGES) & 1);
       named_sync(wg);
       wgmma_fence();
-      issue_pv<HD>(o, p, v_s + st * C::KV_BYTES);
+      issue_rs<HD, BK>(o, p, v_s + st * C::KV_BYTES);
       wgmma_commit();
       if (wg == 1) named_arrive(2);       // warpgroup 2 issues last
       wgmma_wait<0>();
@@ -1068,6 +836,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       float lr = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       inv[r] = 1.f / (lr == 0.f ? 1.f : lr);
+      // the row's lse for the backward: m is in log2 units
+      if (lse != nullptr && t == 0 && row[r] < S)
+        lse[(static_cast<long long>(b) * H + h) * S + row[r]] =
+            lr == 0.f ? 0.f : m[r] * LN2 + logf(lr);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1081,61 +853,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---- host side: tensor maps and the launch
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: the
-// library links no libcuda.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A contiguous bf16 (B, rows, heads, HD) tensor as the 4-D map (HD, heads,
-// rows, B) with the real strides (so GQA reads K/V heads in place), boxes
-// of box_cols columns x 1 head x box_rows rows x 1 batch with the given
-// swizzle (64 columns with the 128-byte swizzle; hd 80's tail: 16 with the
-// 32-byte swizzle), and zeros for rows past the end.
-inline bool encode(CUtensorMap* map, const void* base, int hd, int heads, int rows, int batch,
-                   int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row_bytes = 2ull * hd;
-  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * rows};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1u,
-                             static_cast<cuuint32_t>(box_rows), 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// ---- host side: the launch
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
            int KVH, float scale, bool causal, bool softcap, float cap, int window, int prefix,
-           cudaStream_t stream) {
-  if (Tk == 0)   // no keys: every row has l == 0 and gives zeros
+           float* lse, cudaStream_t stream) {
+  if (Tk == 0) {  // no keys: every row has l == 0 and gives zeros (and lse 0)
+    if (lse != nullptr) {
+      const cudaError_t err = cudaMemsetAsync(lse, 0, sizeof(float) * B * H * S, stream);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     return static_cast<int>(
         cudaMemsetAsync(out, 0, sizeof(__nv_bfloat16) * B * S * H * HD, stream));
+  }
   constexpr int BK = Cfg<HD>::BK;
   constexpr auto SW = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tq, tk, tv;
@@ -1160,7 +891,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
       const int blocks = (S + BQ - 1) / BQ * H * B;
       kernel<<<blocks, NT, Cfg<HD>::bytes, stream>>>(
           tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, Tk, H, KVH, B, scale, cap, window,
-          prefix, tq_tail, tk_tail, tv_tail);
+          prefix, tq_tail, tk_tail, tv_tail, lse);
       return static_cast<int>(cudaGetLastError());
     });
   });
@@ -1171,14 +902,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 template <typename T, typename Kernel>
 int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
         void* out, int B, int S, int Tk, int H, int KVH, float scale, float cap,
-        int window, int prefix, cudaStream_t stream) {
+        int window, int prefix, float* lse, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                      static_cast<const T*>(v), static_cast<T*>(out), S,
-                                     Tk, H, KVH, scale, cap, window, prefix);
+                                     Tk, H, KVH, scale, cap, window, prefix, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1188,11 +919,11 @@ int run(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Tk, int H, int KVH, float scale, bool causal, bool softcap,
-           float cap, int window, int prefix, cudaStream_t stream) {
+           float cap, int window, int prefix, float* lse, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16> &&
                 (HD == 64 || HD == 80 || HD == 128 || HD == 256))
     return hopper::launch<HD>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                              window, prefix, stream);
+                              window, prefix, lse, stream);
   else
     return with_flag(causal, [&](auto CAUSAL) {
       return with_flag(softcap, [&](auto SOFTCAP) {
@@ -1200,10 +931,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
         constexpr bool kSoftcap = decltype(SOFTCAP)::value;
         if constexpr (std::is_same_v<T, __nv_bfloat16> && HD >= 16)
           return run<T>(tc::flash_fwd_mma_kernel<HD, kCausal, kSoftcap>, tc::Cfg<HD>::bytes,
-                        q, k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, stream);
+                        q, k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, lse,
+                        stream);
         else
           return run<T>(flash_fwd_kernel<T, HD, kCausal, kSoftcap>, Smem<T, HD>::bytes, q,
-                        k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, stream);
+                        k, v, out, B, S, Tk, H, KVH, scale, cap, window, prefix, lse,
+                        stream);
       });
     });
 }
@@ -1211,29 +944,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int B,
              int S, int Tk, int H, int KVH, float scale, bool causal, bool softcap,
-             float cap, int window, int prefix, cudaStream_t stream) {
+             float cap, int window, int prefix, float* lse, cudaStream_t stream) {
   switch (hd) {
     case 8:
       return launch<T, 8>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                          window, prefix, stream);
+                          window, prefix, lse, stream);
     case 16:
       return launch<T, 16>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                           window, prefix, stream);
+                           window, prefix, lse, stream);
     case 32:
       return launch<T, 32>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                           window, prefix, stream);
+                           window, prefix, lse, stream);
     case 64:
       return launch<T, 64>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                           window, prefix, stream);
+                           window, prefix, lse, stream);
     case 80:
       return launch<T, 80>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                           window, prefix, stream);
+                           window, prefix, lse, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                            window, prefix, stream);
+                            window, prefix, lse, stream);
     case 256:
       return launch<T, 256>(q, k, v, out, B, S, Tk, H, KVH, scale, causal, softcap, cap,
-                            window, prefix, stream);
+                            window, prefix, lse, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1246,24 +979,33 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int
 // 80, 128, 256}.  softcap <= 0 means none.  With causal != 0, window > 0 keeps
 // only keys t > s - window and prefix > 0 opens the prefix's square
 // (causal_visible); window 0 and prefix 0 mean none, and both are ignored
-// when causal is 0.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// when causal is 0.  lse: null, or a float32 (B, H, S) that receives each
+// row's log-sum-exp of its (scaled, capped, visible) logits in natural-log
+// units, the backward's row statistics (0 for a row that sees no key).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int B, int S, int T, int H, int KVH,
                                      int hd, int dtype, double scale, double softcap,
-                                     int causal, int window, int prefix, void* stream) {
+                                     int causal, int window, int prefix, void* lse,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || T < 0 || window < 0 || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (causal == 0) window = prefix = 0;
   auto s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale), cap = static_cast<float>(softcap);
+  auto* l = static_cast<float*>(lse);
   if (dtype == 0)
     return repro::flash::dispatch<float>(hd, q, k, v, out, B, S, T, H, KVH, sc,
-                                         causal != 0, softcap > 0, cap, window, prefix, s);
+                                         causal != 0, softcap > 0, cap, window, prefix, l, s);
   if (dtype == 2)
     return repro::flash::dispatch<__nv_bfloat16>(hd, q, k, v, out, B, S, T, H, KVH, sc,
                                                  causal != 0, softcap > 0, cap, window,
-                                                 prefix, s);
+                                                 prefix, l, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The version of repro_flash_attention's arguments, for tools that call
+// libraries built from other commits: 1 since it takes the lse pointer; a
+// library without this symbol takes none (stream right after prefix).
+extern "C" int repro_flash_attention_abi() { return 1; }

@@ -19,11 +19,13 @@ query s when
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn.cu``
 (bfloat16 or float32; hd in :data:`HEAD_DIMS`) or raises; on a CPU tensor
-it runs :func:`flash_attention_ref`.  :class:`FlashAttention` is the
-differentiable form the model calls: K3 forward and its backward kernel
-``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_bwd`) on the card,
-:func:`flash_attention_ref` and :func:`flash_attention_bwd_ref` on the
-CPU.  In bfloat16 (hd >= 16) the kernel
+it runs :func:`flash_attention_ref`.  With ``return_lse=True`` both also
+return each row's log-sum-exp of its logits, (B, H, S) float32, which the
+backward reads.  :class:`FlashAttention` is the differentiable form the
+model calls: K3 forward (with lse) and its backward kernel
+``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_bwd`, which takes that
+lse) on the card, :func:`flash_attention_ref` and
+:func:`flash_attention_bwd_ref` on the CPU.  In bfloat16 (hd >= 16) the kernel
 runs both products on the tensor cores: q.k as exact bf16 products summed
 in float32, then scaled in float32; for p.v, at hd 64, 80, 128 and 256
 (the Hopper kernel: TMA, wgmma, warp-specialised; hd 80, zamba2's shared
@@ -44,7 +46,11 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)       # csrc/flash_attn_bwd.cu
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # csrc/flash_attn_bwd.cu
+# bfloat16 at these widths runs the backward's Hopper kernels (TMA, wgmma),
+# which sum dK and dV per query head in a float32 workspace (with GQA);
+# float32 and the smoke widths take the mma.sync / FMA kernels
+BWD_HOPPER_HEAD_DIMS = (64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,24 +81,32 @@ def _check_mask_args(causal: bool, window: int | None, prefix_len: int) -> None:
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float | None = None, softcap: float | None = None,
                         causal: bool = True, window: int | None = None,
-                        prefix_len: int = 0) -> torch.Tensor:
+                        prefix_len: int = 0, return_lse: bool = False):
     """Plain PyTorch version of :func:`flash_attention` with K3's numerics:
     q scaled in float32, float32 logits and probabilities (dense softmax),
     the output cast to q's dtype at the end, zeros for a row that sees no
-    key."""
+    key.  With ``return_lse``, also each row's log-sum-exp of its visible
+    logits, (B, H, S) (0 for a row that sees no key)."""
     _check_mask_args(causal, window, prefix_len)
     b, s, h, hd = q.shape
-    probs, _ = _probs(q, k, scale=scale, softcap=softcap, causal=causal,
-                      window=window, prefix_len=prefix_len)
+    kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
+              prefix_len=prefix_len)
+    if return_lse:
+        logits, _, seen = _logits(q, k, **kw)
+        probs, lse = _softmax(logits, seen), _lse(logits, seen)
+    else:
+        probs, _ = _probs(q, k, **kw)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(probs.dtype))
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    out = out.reshape(b, s, h, hd).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
-def _probs(q, k, *, scale=None, softcap=None, causal=True, window=None,
-           prefix_len=0):
-    """K3's probabilities (B, KVH, G, S, T) in float32 (float64 for float64
-    inputs: gradcheck), and the softcap's derivative 1 - tanh^2 at the
-    logits (None without one)."""
+def _logits(q, k, *, scale=None, softcap=None, causal=True, window=None,
+            prefix_len=0):
+    """K3's logits (B, KVH, G, S, T) in float32 (float64 for float64 inputs:
+    gradcheck): scaled, capped, NEG_INF where hidden; the softcap's
+    derivative 1 - tanh^2 at the logits (None without one); and (S,) bool,
+    whether each row sees a key (None when every row does)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     ct = torch.promote_types(q.dtype, torch.float32)
@@ -100,7 +114,7 @@ def _probs(q, k, *, scale=None, softcap=None, causal=True, window=None,
         scale = 1.0 / math.sqrt(hd)
     qg = q.to(ct).reshape(b, s, kvh, h // kvh, hd) * scale
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(ct))
-    dcap = None
+    dcap = seen = None
     if softcap is not None:
         th = torch.tanh(logits / softcap)
         logits, dcap = softcap * th, 1.0 - th * th
@@ -109,16 +123,39 @@ def _probs(q, k, *, scale=None, softcap=None, causal=True, window=None,
                                torch.arange(t, device=q.device), window=window,
                                prefix_len=prefix_len)
         logits = logits.masked_fill(~visible, NEG_INF)
+        if window is not None:
+            # a row that sees no key (a window past T < S) has l == 0 in K3
+            seen = visible.any(-1)
+    return logits, dcap, seen
+
+
+def _softmax(logits, seen):
     probs = torch.softmax(logits, dim=-1)
-    if causal and window is not None:
-        # a row that sees no key (a window past T < S) has l == 0 in K3 and
-        # gives zeros
-        probs = probs * visible.any(-1)[:, None]
-    return probs, dcap
+    # a row that sees no key gives zeros
+    return probs if seen is None else probs * seen[:, None]
+
+
+def _lse(logits, seen):
+    """(B, KVH, G, S) logits' log-sum-exp as K3 writes it, (B, H, S): 0 for
+    a row that sees no key."""
+    b, kvh, g, s, _ = logits.shape
+    lse = torch.logsumexp(logits, dim=-1)
+    if seen is not None:
+        lse = torch.where(seen, lse, torch.zeros_like(lse))
+    return lse.reshape(b, kvh * g, s)
+
+
+def _probs(q, k, **kw):
+    """K3's probabilities (B, KVH, G, S, T) in float32 (float64 for float64
+    inputs: gradcheck), and the softcap's derivative 1 - tanh^2 at the
+    logits (None without one)."""
+    logits, dcap, seen = _logits(q, k, **kw)
+    return _softmax(logits, seen), dcap
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            out: torch.Tensor, dout: torch.Tensor, *,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor | None = None, *,
                             scale: float | None = None, softcap: float | None = None,
                             causal: bool = True, window: int | None = None,
                             prefix_len: int = 0):
@@ -127,17 +164,26 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for the output gradient ``dout``, in the inputs' dtypes.  The
     reference's blockwise backward math (``_make_flash``'s bwd,
     ``src/repro/models/attention.py:269-314``) over dense tensors, in
-    float32 (float64 for float64 inputs): dP = dO V^T, D = rowsum(dO o O),
-    dS = p (dP - D) (times 1 - tanh^2 under the softcap), dV = P^T dO and
-    dK = dS^T q scale summed over each KV head's query heads, dQ = dS K
-    scale."""
+    float32 (float64 for float64 inputs): p = exp(x - lse) over the visible
+    logits x with the forward's ``lse`` (B, H, S) when one is given, as the
+    reference's bwd reads the forward's m and l, else the dense softmax;
+    dP = dO V^T, D = rowsum(dO o O), dS = p (dP - D) (times 1 - tanh^2
+    under the softcap), dV = P^T dO and dK = dS^T q scale summed over each
+    KV head's query heads, dQ = dS K scale."""
     _check_mask_args(causal, window, prefix_len)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    p, dcap = _probs(q, k, scale=scale, softcap=softcap, causal=causal, window=window,
-                     prefix_len=prefix_len)
+    logits, dcap, seen = _logits(q, k, scale=scale, softcap=softcap, causal=causal,
+                                 window=window, prefix_len=prefix_len)
+    if lse is None:
+        p = _softmax(logits, seen)
+    else:
+        # hidden logits are NEG_INF: p = 0 there, and for a row that sees
+        # no key (lse 0)
+        p = torch.exp(logits - lse.to(logits.dtype).reshape(b, kvh, h // kvh, s, 1))
+    del logits
     ct = p.dtype
     do = dout.to(ct).reshape(b, s, kvh, h // kvh, hd)
     dp = torch.einsum("bskgd,btkd->bkgst", do, v.to(ct))
@@ -177,12 +223,16 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (want.float().abs() + mass) * 2.0 ** -7
 
 
+# repro_flash_attention's arguments: q, k, v, out; B, S, T, H, KVH, hd,
+# dtype; scale, softcap; causal, window, prefix; lse, stream
+FWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
-    lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.repro_flash_attention.argtypes = FWD_ARGTYPES
     lib.repro_flash_attention.restype = ctypes.c_int
     return lib
 
@@ -190,13 +240,14 @@ def _lib() -> ctypes.CDLL:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, softcap: float | None = None,
                     causal: bool = True, window: int | None = None,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    prefix_len: int = 0, return_lse: bool = False):
     """GQA attention forward; K3 on the card, the plain version on the
-    CPU."""
+    CPU.  With ``return_lse``: (out, lse), lse each row's log-sum-exp of
+    its logits, (B, H, S) float32 on the card."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
                                    causal=causal, window=window,
-                                   prefix_len=prefix_len)
+                                   prefix_len=prefix_len, return_lse=return_lse)
     _check_mask_args(causal, window, prefix_len)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, S, H, hd) and k, v (B, T, KVH, hd)")
@@ -222,6 +273,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     win = 0 if window is None or window >= s else int(window)
     prefix = min(int(prefix_len), max(s, t))
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _lib()
     # the launch function launches into, and sets attributes on, the
     # current card: make it the tensor's, which may be another card
@@ -229,7 +282,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.repro_flash_attention(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, s, t,
             h, kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
-            float(softcap or 0.0), int(causal), win, prefix,
+            float(softcap or 0.0), int(causal), win, prefix, build.ptr(lse),
             build.stream(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
@@ -237,7 +290,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention.mask_launches["window"] += 1
     if prefix:
         flash_attention.mask_launches["prefix"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # launches, and those of them that applied a window or a prefix
@@ -299,25 +352,27 @@ def error_bound_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attn_bwd")
     lib.repro_flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
+                        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
                         scale: float | None = None, softcap: float | None = None,
                         causal: bool = True, window: int | None = None,
                         prefix_len: int = 0):
     """The gradients (dq, dk, dv) of :func:`flash_attention` at its output
-    ``out`` for the output gradient ``dout``: the backward kernel on the
-    card (causal only; bfloat16 or float32; hd in :data:`BWD_HEAD_DIMS`),
-    else it raises; :func:`flash_attention_bwd_ref` on the CPU."""
+    ``out`` and row statistics ``lse`` (``flash_attention(...,
+    return_lse=True)``) for the output gradient ``dout``: the backward
+    kernel on the card (causal only; bfloat16 or float32; hd in
+    :data:`BWD_HEAD_DIMS`), else it raises; :func:`flash_attention_bwd_ref`
+    on the CPU."""
     kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
               prefix_len=prefix_len)
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
     _check_mask_args(causal, window, prefix_len)
     if not causal:
         raise ValueError("K3's backward kernel takes the causal mask only")
@@ -338,47 +393,60 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.check_tensor(x, name, q.device, q.dtype, shape)
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+    build.check_tensor(lse, "lse", q.device, torch.float32, (b, h, s))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     win = 0 if window is None or window >= s else int(window)
     prefix = min(int(prefix_len), max(s, t))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    # the forward's lse and D = rowsum(dO o O), rows padded to 64
+    rows = torch.empty(2, b, h, -(-s // 64) * 64, dtype=torch.float32, device=q.device)
+    ws = None
+    if q.dtype == torch.bfloat16 and hd in BWD_HOPPER_HEAD_DIMS and h > kvh:
+        # dK and dV per query head, summed over each group by the kernel
+        ws = torch.empty(2, b, t, h, hd, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         code = lib.repro_flash_attention_bwd(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(dout),
-            build.ptr(dq), build.ptr(dk), build.ptr(dv), build.ptr(lse), build.ptr(delta),
-            b, s, t, h, kvh, hd, build.DTYPE_CODES[q.dtype], float(scale),
-            float(softcap or 0.0), win, prefix, build.stream(q.device))
+            build.ptr(lse), build.ptr(dq), build.ptr(dk), build.ptr(dv), build.ptr(rows[0]),
+            build.ptr(rows[1]), build.ptr(ws), b, s, t, h, kvh, hd,
+            build.DTYPE_CODES[q.dtype], float(scale), float(softcap or 0.0), win, prefix,
+            build.stream(q.device))
     build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-# launches of the backward kernel (one per call: its three kernels)
+# launches of the backward kernel (one per call: its kernels in turn)
 flash_attention_bwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """K3 with its gradient: ``FlashAttention.apply(q, k, v, scale,
     softcap, causal, window, prefix_len)``.  The forward is
-    :func:`flash_attention` and the backward :func:`flash_attention_bwd`
-    at the saved q, k, v and output (the kernels on the card, the plain
-    versions on the CPU); the non-tensor arguments get no gradient."""
+    :func:`flash_attention` with its row statistics and the backward
+    :func:`flash_attention_bwd` at the saved q, k, v, output and lse (the
+    kernels on the card, the plain versions on the CPU); under
+    ``torch.utils.checkpoint`` the recomputed forward's lse is the one the
+    backward reads.  Where no input needs a gradient (serving) the forward
+    writes no lse and saves nothing.  The non-tensor arguments get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, softcap, causal, window, prefix_len):
         kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
                   prefix_len=prefix_len)
-        out = flash_attention(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out)
+        if not any(ctx.needs_input_grad[:3]):
+            # no backward will run (serving, or no grad): no lse
+            return flash_attention(q, k, v, **kw)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), **ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None

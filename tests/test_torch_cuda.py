@@ -462,10 +462,36 @@ def test_k3_rejects_what_it_cannot_take(dev):
         k3.flash_attention(q, k.bfloat16(), v)
 
 
+# K3's forward with and without its lse output: each kernel (the Hopper one
+# at bf16 hd 64/80/128/256, mma.sync at bf16 hd 16, FMA at float32 and hd 8)
+# x causal, window, prefix with softcap, non-causal
+K3_LSE_KERNELS = [(torch.bfloat16, 64), (torch.bfloat16, 80), (torch.bfloat16, 128),
+                  (torch.bfloat16, 256), (torch.bfloat16, 16), (torch.float32, 64),
+                  (torch.float32, 8)]
+K3_LSE_MASKS = [dict(), dict(window=40), dict(prefix_len=70, softcap=30.0), dict(causal=False)]
+
+
+@pytest.mark.parametrize("dtype,hd", K3_LSE_KERNELS)
+@pytest.mark.parametrize("kw", K3_LSE_MASKS)
+def test_k3_lse_output(dev, dtype, hd, kw):
+    """K3's output is bit for bit the same with and without ``return_lse``,
+    and its lse lies within 1e-5 relative of the plain version's (1e-5
+    absolute where |lse| < 1: a row's lse can lie near 0)."""
+    q, k, v = _qkv(dev, dtype, 2, 200, 200, 4, 2, hd)
+    plain = k3.flash_attention(q, k, v, **kw)
+    out, lse = k3.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    _, want = k3.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 200)
+    assert bool(((lse - want).abs() <= 1e-5 * want.abs().clamp_min(1.0)).all())
+
+
 # K3's backward kernel: (b, h, kvh, s) x (window, prefix, softcap): G = 1, 2
-# and 12 (starcoder2's), ragged lengths around the 64-row and 64-key tiles,
-# a window of one key and one across tiles, prefixes short of, across and
-# past a tile, all three at once
+# and 12 (starcoder2's), ragged lengths around the 64-row and 64-key tiles
+# (and the Hopper kernels' 128-key and 128-query blocks), a window of one
+# key and one across tiles, prefixes short of, across and past a tile, all
+# three at once
 K3_BWD_SHAPES = [(1, 2, 2, 64), (2, 4, 2, 200), (1, 24, 2, 129), (1, 4, 2, 1)]
 K3_BWD_MASKS = [(None, 0, None), (1, 0, None), (70, 0, None), (None, 63, None),
                 (None, 130, None), (None, 0, 30.0), (40, 100, 30.0)]
@@ -478,10 +504,10 @@ K3_BWD_MASKS = [(None, 0, None), (1, 0, None), (70, 0, None), (None, 63, None),
 def test_k3_bwd_matches_plain(dev, dtype, hd, b, h, kvh, s, window, prefix, softcap):
     q, k, v = _qkv(dev, dtype, b, s, s, h, kvh, hd)
     kw = dict(softcap=softcap, window=window, prefix_len=prefix)
-    out = k3.flash_attention(q, k, v, **kw)
+    out, lse = k3.flash_attention(q, k, v, return_lse=True, **kw)
     dout = torch.randn(q.shape, device=dev).to(dtype)
     before = k3.flash_attention_bwd.launches
-    got = k3.flash_attention_bwd(q, k, v, out, dout, **kw)
+    got = k3.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
     assert k3.flash_attention_bwd.launches == before + 1
     x64 = [x.double() for x in (q, k, v, out, dout)]
@@ -498,18 +524,22 @@ def test_k3_bwd_through_autograd_and_rejections(dev):
     before = k3.flash_attention_bwd.launches
     out.float().square().sum().backward()
     assert k3.flash_attention_bwd.launches == before + 1
+    _, lse = k3.flash_attention(q.detach(), k.detach(), v.detach(), return_lse=True)
     want = k3.flash_attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(),
-                                  (2 * out.float()).bfloat16())
+                                  (2 * out.float()).bfloat16(), lse)
     for x, w in zip((q, k, v), want):
         assert torch.equal(x.grad, w)
     a, b_, c = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 16)
+    lse = torch.zeros(1, 4, 8, device=dev)
     with pytest.raises(ValueError):       # non-causal
-        k3.flash_attention_bwd(a, b_, c, a, a, causal=False)
-    with pytest.raises(ValueError):       # hd 80 waits for zamba2's training
-        x = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 80)
-        k3.flash_attention_bwd(*x, x[0], x[0])
+        k3.flash_attention_bwd(a, b_, c, a, a, lse, causal=False)
+    with pytest.raises(ValueError):       # hd 8: no backward kernel takes it
+        x = _qkv(dev, torch.float32, 1, 8, 8, 4, 2, 8)
+        k3.flash_attention_bwd(*x, x[0], x[0], lse)
     with pytest.raises(TypeError):
-        k3.flash_attention_bwd(a, b_, c, a, a.bfloat16())
+        k3.flash_attention_bwd(a, b_, c, a, a.bfloat16(), lse)
+    with pytest.raises(ValueError):       # lse of another shape
+        k3.flash_attention_bwd(a, b_, c, a, a, lse[:, :2])
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "paligemma-3b"])
