@@ -140,16 +140,18 @@ Phases (any failure exits non-zero and prints no result line):
    16/32/64/80/128/256 x G in {1, 2, 12} (2 KV heads) x S = T in {64, 200,
    1024} x causal, window 70, prefix 130, softcap 30, and all three (bf16
    at hd 64/80/128/256 runs the Hopper kernels);
-   (b) the backward at the layers of starcoder2-3b, musicgen-large,
-   zamba2-2.7b's shared attention (hd 80) and gemma2-2b's local layer (hd
-   256, window 4096, softcap 50) (B = 2, S = 4096, bf16, causal) against
-   its plain version, element by element and norm-wise, with planted
+   (b) the backward at the layers of starcoder2-3b, musicgen-large and
+   zamba2-2.7b's shared attention (hd 80) (B = 2, S = 4096), gemma2-2b's
+   local layer (hd 256, window 4096, softcap 50; S = 6144, so that the
+   window hides keys) and paligemma-3b's (8 query heads over 1 KV head at
+   hd 256, prefix 256; S = 4352, its training length) (bf16, causal)
+   against its plain version, element by element and norm-wise, with planted
    faults (a query head dropped, each row's own 64-key tile left out of
    dQ) that the checks must reject, timed (median of 50 launches) beside
    its operations bound (10 hd flops per visible pair and head) and, in
    turns, beside the backward through autograd of
-   ``scaled_dot_product_attention(is_causal=True)``, or of
-   ``flex_attention`` where the softcap applies (the library yardstick,
+   ``scaled_dot_product_attention`` (causal, or with the prefix's boolean
+   mask), or of ``flex_attention`` where the softcap applies (the library yardstick,
    which the port never calls); its kernels' device time (profiled) and
    the longest and average block's tile iterations;
    (c) starcoder2-3b trained at full width: ``make_train_step`` on
@@ -167,13 +169,29 @@ Phases (any failure exits non-zero and prints no result line):
    after the model-level prefill (2 x 1024 x 4 tokens) and 4 decode steps
    with (B, 1, 4) tokens, whose logits must be finite and (2, 1, 4, 2048)
    (``ServeEngine`` refuses the audio family, ROADMAP F6);
+   (e) the other families likewise, 3 timed steps each: gemma2-2b (13
+   local/global pairs, each pair one checkpointed body; its 4096-key window
+   hides no key at S 4096, so no launch may apply it), paligemma-3b (2 x
+   (256 prefix + 4096 text) positions; every forward launch applies the
+   prefix), rwkv6-3b (the chunked WKV; no K3), zamba2-2.7b (the chunked
+   SSD; each group of 6 Mamba2 layers with the shared block is one body:
+   K3 at hd 80 on 9 calls; then the largest dt A of one forward, against
+   float32 exp's underflow) and deepseek-moe-16b at full width and 4 of
+   its 28 layers (the dense layer and 3 MoE layers: the capacity dispatch,
+   the combine and the aux loss under autograd).  K3 must launch 2 x and
+   its backward 1 x the attention calls per step (26 / 18 / 0 / 9 / 4);
+   the flops count 6 N positions with N the parameters a token's forward
+   reads as often as it runs (a MoE layer's top-6 of 64 routed experts,
+   zamba2's shared block 9 times) plus the attention's products over each
+   launch's visible pairs, not the WKV's or the SSD's own products;
 9. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
    at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, and K3's backward,
    ``flash_attention_bwd``, with its launches in starcoder2's timed
-   training steps, its numbers at starcoder2's layer shape, the kernel of
-   each of its widths and its numbers at the other layers of (b)), the
+   training steps, its launches per step in each training run, its
+   numbers at starcoder2's layer shape, the kernel of each of its widths
+   and its numbers at the other layers of (b)), the
    ``nvidia-smi`` line and, last, the result line ``{"ok": true,
    "device": {...}}``.
 
@@ -316,12 +334,15 @@ K3_BWD_LENGTHS = (64, 200, 1024)
 K3_BWD_GROUPS = (1, 2, 12)
 K3_BWD_MASKS = ((None, 0, None), (70, 0, None), (None, 130, None), (None, 0, 30.0),
                 (40, 100, 30.0))
-K3_BWD_MAIN = (2, 4096)      # (B, S) of the training runs' layers
-# the layers K3's backward is held and timed at, (B, S) = K3_BWD_MAIN: the
-# two trained models' (starcoder2 G = 12 at hd 128, musicgen hd 64), zamba2's
-# shared attention (hd 80) and gemma2's local layer (hd 256, its window and
-# attention softcap), the widths ROADMAP's next slice trains
-K3_BWD_LAYERS = ("starcoder2-3b", "musicgen-large", "zamba2-2.7b", "gemma2-2b")
+# the layers K3's backward is held and timed at, arch -> (B, S, prefix):
+# starcoder2's (G = 12 at hd 128), musicgen's (hd 64) and zamba2's shared
+# attention (hd 80) at the training runs' 2 x 4096; gemma2's local layer
+# (hd 256, its attention softcap) at 6144, so that its 4096-key window
+# hides keys; paligemma's (G = 8 at hd 256) at its training length, its
+# 256-position prefix and 4096 text positions
+K3_BWD_LAYERS = {"starcoder2-3b": (2, 4096, 0), "musicgen-large": (2, 4096, 0),
+                 "zamba2-2.7b": (2, 4096, 0), "gemma2-2b": (2, 6144, 0),
+                 "paligemma-3b": (2, 4352, 256)}
 # At those shapes the backward's bf16 outputs are also held norm-wise:
 # ||kernel - plain|| / ||plain|| per output.  Each version rounds every
 # output to bf16 once (at most 2**-8 relative) and the kernel rounds p and
@@ -336,19 +357,28 @@ K3_BWD_NORM_REL = 2.0 ** -6
 
 class TrainRun(NamedTuple):
     """One training run at full width: ``warm`` untimed steps, then
-    ``timed`` steps between CUDA events."""
+    ``timed`` steps between CUDA events; ``layers`` cuts the depth (None:
+    the config's)."""
     arch: str
     batch: int
     seq: int
     warm: int
     timed: int
+    layers: int | None = None
 
 
-# starcoder2-3b at the reference's train_4k sequence length, and
-# musicgen-large (4 codebooks) at the same shape; both with bf16 compute,
-# float32 parameters and AdamW state, each layer checkpointed
+# every family at the reference's train_4k sequence length (text tokens;
+# paligemma's 256 prefix positions come on top), batch 2, bf16 compute,
+# float32 parameters and AdamW state, each scanned body checkpointed.
+# deepseek-moe-16b keeps its first dense layer and 3 MoE layers of 27: its
+# 28 layers' state (16.4 B parameters, 262 GB) waits for sharding
 TRAIN_RUNS = (TrainRun("starcoder2-3b", 2, 4096, 2, 5),
-              TrainRun("musicgen-large", 2, 4096, 2, 3))
+              TrainRun("musicgen-large", 2, 4096, 2, 3),
+              TrainRun("gemma2-2b", 2, 4096, 2, 3),
+              TrainRun("paligemma-3b", 2, 4096, 2, 3),
+              TrainRun("rwkv6-3b", 2, 4096, 2, 3),
+              TrainRun("zamba2-2.7b", 2, 4096, 2, 3),
+              TrainRun("deepseek-moe-16b", 2, 4096, 2, 3, layers=4))
 # the kernel names of K3's forward and backward in a profiler trace
 K3_FWD_NAME, K3_BWD_NAME = "flash_fwd", "flash_bwd"
 
@@ -402,6 +432,38 @@ def attention_calls(cfg) -> int:
     if cfg.family == "ssm":
         return 0
     return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def attention_pairs(cfg, s: int) -> float:
+    """Visible (query, key) pairs of one sequence of ``s`` positions summed
+    over a forward's attention calls: gemma2's local layers under their
+    window, a vlm's under its prefix square, else causal."""
+    pos = torch.arange(s)
+
+    def pairs(**kw) -> float:
+        return float(k3.visible_mask(pos, pos, **kw).sum())
+
+    if cfg.layer_pattern == "local_global":
+        return cfg.n_layers // 2 * (pairs(window=cfg.local_window) + pairs())
+    prefix = cfg.prefix_tokens if cfg.family == "vlm" else 0
+    return attention_calls(cfg) * pairs(prefix_len=prefix)
+
+
+def active_params(model, cfg) -> int:
+    """N of a step's 6 N tokens: the parameters one token's forward reads,
+    each as often as it runs -- a MoE layer's routed experts count top_k of
+    n_experts, zamba2's shared block counts once per call."""
+    n = model.param_count()
+    if cfg.family == "moe":
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        for block in model.layers["moe_layers"]:
+            routed = sum(p.numel() for name, p in block.moe.named_parameters()
+                         if name in ("up", "gate", "down"))
+            n -= routed // e * (e - k)
+    if cfg.family == "hybrid":
+        shared = sum(p.numel() for p in model.layers["shared"].parameters())
+        n += (attention_calls(cfg) - 1) * shared
+    return n
 
 
 def call_mask(kw: dict) -> str:
@@ -2172,6 +2234,8 @@ class Smoke:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "model": "starcoder2-3b",
             "launches_per_step": run["bwd_launches"] / run["steps"],
+            "launches_per_step_by_model": {arch: r["bwd_launches"] / r["steps"]
+                                           for arch, r in self.train.items()},
             "head_dims": self.k3_bwd_kernels,
             "layers": {arch: {key: r[key] for key in ("hd", "kernels", "ms", "library",
                                                       "library_ms", "bound_ms", "max_abs_err")}
@@ -2214,8 +2278,9 @@ class Smoke:
             f"error_bound_bwd; worst |err| / bound over elements: {json.dumps(worst)}")
 
     def k3_bwd_main_shapes(self) -> None:
-        """K3's backward kernel at the layers of ``K3_BWD_LAYERS`` (B = 2,
-        S = 4096, bf16, causal; gemma2's with its window and softcap):
+        """K3's backward kernel at the layers of ``K3_BWD_LAYERS`` (bf16,
+        causal; gemma2's with its window and softcap, paligemma's with its
+        prefix):
         against its plain version (the kernels line's max_abs_err:
         starcoder2's) element by element within ``error_bound_bwd`` and
         norm-wise within ``K3_BWD_NORM_REL``, with planted faults that must
@@ -2232,11 +2297,11 @@ class Smoke:
         from torch.profiler import ProfilerActivity, profile
 
         gen = torch.Generator(device=self.dev).manual_seed(3)
-        for arch in K3_BWD_LAYERS:
+        for arch, (b, s, prefix) in K3_BWD_LAYERS.items():
             cfg = get_config(arch)
-            (b, s), h, kvh, hd = K3_BWD_MAIN, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
             kw = dict(scale=cfg.query_scale or hd ** -0.5, softcap=cfg.attn_softcap,
-                      window=cfg.local_window, prefix_len=0)
+                      window=cfg.local_window, prefix_len=prefix)
             q, k, v = self._qkv(gen, torch.bfloat16, b, s, h, kvh, hd)
             dout = torch.randn(q.shape, generator=gen, device=self.dev).to(torch.bfloat16)
             out, lse = k3.flash_attention(q, k, v, return_lse=True, **kw)
@@ -2319,14 +2384,16 @@ class Smoke:
                                      f"{sorted(traced_us)}, the dispatch names {expect}")
             split = {part: float(np.mean(us)) / 1e3 for part, us in traced_us.items()}
             window = kw["window"] if kw["window"] and kw["window"] < s else None
-            work = bwd_block_work(s, s, hd, h // kvh, window=window)
+            work = bwd_block_work(s, s, hd, h // kvh, window=window, prefix_len=prefix)
             pos = torch.arange(s, device=self.dev)
-            pairs = b * float(k3.visible_mask(pos, pos, window=kw["window"]).sum())
+            pairs = b * float(k3.visible_mask(pos, pos, window=kw["window"],
+                                              prefix_len=prefix).sum())
             flops = 10.0 * hd * h * pairs               # visible, per head
             nbytes = 2 * (4 * q.numel() + 4 * k.numel())  # q, o, dO, dq; k, v, dk, dv
             bms, by = bound(nbytes, flops, torch.bfloat16)
             shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} bf16 causal"
                      + (f" window={kw['window']}" if kw["window"] else "")
+                     + (f" prefix={prefix}" if prefix else "")
                      + (f" softcap={kw['softcap']}" if kw["softcap"] else ""))
             log(f"[K3 bwd {arch} {shape}] |err| {err:.3e} ({ratio:.3f} of the bound, "
                 f"norm-wise {norm:.3e}); {ms:.4f} ms/launch = {flops / ms / 1e9:.1f} TFLOP/s "
@@ -2346,20 +2413,27 @@ class Smoke:
 
     def train_main(self, run: "TrainRun") -> None:
         """``make_train_step`` on ``TokenPipeline`` batches at full width:
-        ``run.warm`` steps, then ``run.timed`` between CUDA events; K3's
-        forward must launch 2 x layers per step (each checkpointed layer
-        runs again in the backward) and its backward once per layer."""
+        ``run.warm`` steps, then ``run.timed`` between CUDA events.  Per
+        step K3's forward must launch twice per attention call (each
+        checkpointed body runs again in the backward) and its backward
+        once; a window applies only where it hides keys (gemma2's 4096 at S
+        4096 does not); each of paligemma's forward launches applies its
+        prefix."""
         cfg = get_config(run.arch)
+        if run.layers:
+            cfg = dataclasses.replace(cfg, n_layers=run.layers)
         t0 = time.perf_counter()
         model = CausalLM(cfg, device=self.dev, seed=0)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        audio = cfg.family == "audio"
+        audio, vlm = cfg.family == "audio", cfg.family == "vlm"
         if audio:
             self.audio_serve_check(model, cfg)
         data = DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq,
                           global_batch=run.batch, seed=0,
-                          num_codebooks=cfg.num_codebooks if audio else 0)
+                          num_codebooks=cfg.num_codebooks if audio else 0,
+                          prefix_tokens=cfg.prefix_tokens if vlm else 0,
+                          d_model=cfg.d_model)
         pipe = TokenPipeline(data)
         steps = run.warm + run.timed
         opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1)
@@ -2373,6 +2447,7 @@ class Smoke:
             metrics.append(m)
         torch.cuda.synchronize()
         k3.flash_attention.launches = k3.flash_attention_bwd.launches = 0
+        k3.flash_attention.mask_launches.update(window=0, prefix=0)
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for i in range(run.warm, steps):
@@ -2381,35 +2456,74 @@ class Smoke:
         stop.record()
         stop.synchronize()
         fwd, bwd = k3.flash_attention.launches, k3.flash_attention_bwd.launches
+        masks = dict(k3.flash_attention.mask_launches)
         step_ms = start.elapsed_time(stop) / run.timed
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses = [float(m["loss"]) for m in metrics]
         norms = [float(m["grad_norm"]) for m in metrics]
         if not all(np.isfinite(losses + norms)):
             raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
-        layers = cfg.n_layers
-        if fwd != 2 * layers * run.timed or bwd != layers * run.timed:
-            raise AssertionError(f"K3 launched {fwd} forward and {bwd} backward times in "
-                                 f"{run.timed} steps, expected {2 * layers} and {layers} "
-                                 "per step")
+        calls = attention_calls(cfg)
+        positions = run.seq + (cfg.prefix_tokens if vlm else 0)
+        windowed = (cfg.n_layers // 2 if cfg.layer_pattern == "local_global"
+                    and cfg.local_window < positions else 0)
+        got = {"forward": fwd, "backward": bwd, **masks}
+        want = {"forward": 2 * calls * run.timed, "backward": calls * run.timed,
+                "window": 2 * windowed * run.timed,
+                "prefix": 2 * calls * run.timed if vlm else 0}
+        if got != want:
+            raise AssertionError(f"K3 launches in {run.timed} steps of {run.arch}: {got}, "
+                                 f"expected {want}")
         tokens = run.batch * run.seq
-        n = model.param_count()
-        pairs = run.batch * run.seq * (run.seq + 1) / 2
-        attn = 3 * 4.0 * cfg.hd * cfg.n_heads * pairs * layers   # fwd + bwd products
-        flops = 6.0 * n * tokens + attn
+        n_active = active_params(model, cfg)
+        # fwd + bwd products of each visible pair and head: 3 x 4 hd
+        attn = 3 * 4.0 * cfg.hd * cfg.n_heads * run.batch * attention_pairs(cfg, positions)
+        flops = 6.0 * n_active * run.batch * positions + attn
         share = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-        log(f"[train {run.arch}] {n:,} parameters (float32, AdamW m/v float32, "
-            f"{cfg.dtype} compute, each layer checkpointed), init {setup:.1f} s; "
-            f"{run.batch} x {run.seq} tokens per step: {step_ms:.2f} ms/step = "
-            f"{tokens / step_ms * 1e3:.1f} tok/s over {run.timed} timed steps after "
-            f"{run.warm}; (6 N tokens + attention {attn:.3e}) = {flops:.3e} flops per "
-            f"step = {share:.4f} of the dense bf16 peak; peak device memory {peak:.2f} "
-            f"GiB; K3 launches per step: forward {fwd / run.timed:.0f} (2 x {layers}), "
-            f"backward {bwd / run.timed:.0f}; losses {[round(x, 4) for x in losses]}, "
+        unc = {"ssm": "; not counted: the chunked WKV's own products",
+               "hybrid": "; not counted: the chunked SSD's own products"}.get(cfg.family, "")
+        depth = f", depth cut to {cfg.n_layers} layers" if run.layers else ""
+        log(f"[train {run.arch}] {model.param_count():,} parameters{depth} (float32, "
+            f"AdamW m/v float32, {cfg.dtype} compute, each scanned body checkpointed), "
+            f"init {setup:.1f} s; {run.batch} x {positions} positions per step "
+            f"({tokens} text tokens): {step_ms:.2f} ms/step = {tokens / step_ms * 1e3:.1f} "
+            f"tok/s over {run.timed} timed steps after {run.warm}; (6 x {n_active:,} active "
+            f"parameters x positions + attention {attn:.3e}{unc}) = {flops:.3e} flops per "
+            f"step = {share:.4f} of the dense bf16 peak; peak device memory {peak:.2f} GiB "
+            f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; K3 "
+            f"launches per step: forward {fwd / run.timed:.0f} (2 x {calls} attention "
+            f"calls), backward {bwd / run.timed:.0f}, with a window "
+            f"{masks['window'] / run.timed:.0f}, with a prefix "
+            f"{masks['prefix'] / run.timed:.0f}; losses {[round(x, 4) for x in losses]}, "
             f"grad norms {[round(x, 4) for x in norms]}")
         self.train[run.arch] = {"bwd_launches": bwd, "fwd_launches": fwd,
                                 "step_ms": step_ms, "steps": run.timed}
         self.profile_train(step_fn, opt, batches[-1], steps, run, step_ms)
+        if cfg.family == "hybrid":
+            self.ssd_decay_range(model, cfg, batches[-1])
+
+    def ssd_decay_range(self, model, cfg, batch) -> None:
+        """The largest dt A of one forward over a training batch, over every
+        Mamba2 layer and head: ``ssd_chunked`` takes log(a) of a = exp(-dt
+        A), which underflows to 0 in float32 (log -inf) once dt A passes
+        ~103 (ROADMAP §3)."""
+        nh = model.layers["mamba"][0].ssm.a_log.shape[0]
+        worst = []
+
+        def hook(mod, args):
+            proj = args[0] @ mod.cast("in_proj", args[0].dtype)[:, -nh:]
+            dt = torch.nn.functional.softplus(proj.float() + mod.dt_bias.float())
+            worst.append(float((dt * torch.exp(mod.a_log.float())).max()))
+
+        handles = [layer.ssm.register_forward_pre_hook(hook)
+                   for layer in model.layers["mamba"]]
+        with torch.no_grad():
+            model.forward_hidden(torch.as_tensor(batch["tokens"], device=self.dev))
+        for handle in handles:
+            handle.remove()
+        log(f"[train {cfg.name} SSD] largest dt x A over {len(worst)} Mamba2 layers of "
+            f"one forward after the timed steps: {max(worst):.2f} (float32 exp(-dt A) "
+            "underflows to 0 past ~103)")
 
     def profile_train(self, step_fn, opt, batch, step, run, step_ms) -> None:
         """One train step under ``torch.profiler``: the device idle share

@@ -3,6 +3,8 @@
     # a smoke config on the CPU (plain kernel versions)
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --smoke --device cpu --steps 3
     # on the card (K3 forward and its backward kernel)
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --smoke --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ck
@@ -12,8 +14,9 @@ checkpointed train step, checkpoint store (async saves + preemption
 emergency save), step watchdog, and optional gradient compression.  It
 prints the reference's lines.  Checkpoints hold ``{"params", "opt"}`` in
 the reference's pytree layout (``convert``) and ``extra={"step",
-"data"}``: a run of either package resumes from the other's.  Training
-covers the dense and audio families (``models.transformer.check_trainable``).
+"data"}``: a run of either package resumes from the other's.  Every
+family the port serves trains (``--arch`` over ``configs.ARCHS``): a vlm's
+batches carry ``prefix_embeds``, a MoE's loss adds the router's aux.
 """
 from __future__ import annotations
 

@@ -106,7 +106,9 @@ def ssd_chunked(xh, bt, ct, a, dt, chunk: int):
     # intra-chunk: score[t, s'] = C_t . B_s' exp(cum_t - cum_s') dt_s'
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,G,C,C,H)
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(rel), 0.0)
+    # masked before exp: above the diagonal rel > 0 can overflow exp to inf,
+    # and the backward's 0 x inf would be NaN (ROADMAP F8)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], rel, -torch.inf))
     cb = torch.einsum("bgtn,bgsn->bgts", cr, br).to(f32)        # in B/C's dtype
     w = cb[..., None] * decay * dtr[:, :, None, :, :]
     y_intra = torch.einsum("bgtsh,bgshp->bgthp", w, xr)

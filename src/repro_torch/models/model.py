@@ -5,7 +5,7 @@ moe, ssm and hybrid families).
     model = CausalLM(cfg)                        # on the card; seed 0
     logits, aux = model.forward(tokens)          # (B, S) -> (B, S, V) f32;
                                                  # aux: the MoE layers' loss
-    loss, metrics = model.loss(tokens, labels)   # mean CE (+ aux); trainable
+    loss, metrics = model.loss(tokens, labels)   # mean CE (+ aux)
     logits, cache = model.prefill(tokens, max_len)       # last-token logits
     logits, cache = model.decode_step(tokens, cache, index)
 
@@ -20,11 +20,11 @@ lookups are summed, and the logits are (B, S, K, V).
 The reference keeps its parameters in a plain pytree beside a stateless
 class; here the module owns them, in ``cfg.param_dtype``, and reads them
 in the compute dtype ``cfg.dtype`` (see ``CastParams``).  ``forward`` and
-``loss`` record gradients where autograd is on, for the families that
-``check_trainable`` admits (the others run ``forward`` without); each
-layer then runs under ``torch.utils.checkpoint``, as the reference's
-``jax.checkpoint`` wraps each scanned layer.  ``prefill`` and
-``decode_step`` never record.
+``loss`` record gradients where autograd is on, for every family; each
+scanned body of the reference (a layer, a local/global pair, a zamba2
+group) then runs under ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` wraps it.  ``prefill`` and ``decode_step`` never
+record.
 """
 from __future__ import annotations
 
@@ -36,14 +36,12 @@ from .config import ModelConfig
 from .layers import CastParams, empty_param, param_init, rms_norm
 from .transformer import (
     check_supported,
-    check_trainable,
     init_cache,
     init_stack,
     reset_stack,
     stack_decode,
     stack_forward,
     stack_prefill,
-    trainable,
 )
 
 
@@ -147,26 +145,19 @@ class CausalLM(CastParams):
                         plus_one=self.cfg.post_norms)
 
     # --------------------------------------------------------------- forward
-    def _recording(self):
-        """Autograd as the caller has it, for a trainable family; off for
-        the others (their gradients are not ported)."""
-        return torch.set_grad_enabled(torch.is_grad_enabled() and trainable(self.cfg))
-
     def forward_hidden(self, tokens: torch.Tensor, prefix_embeds=None):
         """The stack's normed output before unembedding: (x (B, S, D),
         aux)."""
-        with self._recording():
-            x = self._embed(tokens.to(self.device), prefix_embeds)
-            x, aux = stack_forward(self.layers, x, self.cfg, self._positions(x),
-                                   self._prefix_len())
-            return self._final_norm(x), aux
+        x = self._embed(tokens.to(self.device), prefix_embeds)
+        x, aux = stack_forward(self.layers, x, self.cfg, self._positions(x),
+                               self._prefix_len())
+        return self._final_norm(x), aux
 
     def forward(self, tokens: torch.Tensor, prefix_embeds=None):
         """Full forward over (B, S) tokens ((B, S, K) for audio; after
         ``prefix_embeds``, a vlm's).  Returns (logits, aux_loss)."""
-        with self._recording():
-            x, aux = self.forward_hidden(tokens, prefix_embeds)
-            return self._unembed(x), aux
+        x, aux = self.forward_hidden(tokens, prefix_embeds)
+        return self._unembed(x), aux
 
     def _chunk_loss(self, x: torch.Tensor, labels: torch.Tensor):
         """(sum of the chunk's nll over labels >= 0, their count)."""
@@ -185,7 +176,7 @@ class CausalLM(CastParams):
         ``LOSS_CHUNK`` (a divisor of S), each under
         ``torch.utils.checkpoint`` where autograd records, so the backward
         holds one chunk's logits at a time."""
-        check_trainable(self.cfg)
+        check_supported(self.cfg)
         x, aux = self.forward_hidden(tokens, prefix_embeds)
         labels = labels.to(self.device).long()
         if self.cfg.family == "vlm":

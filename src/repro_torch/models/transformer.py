@@ -31,10 +31,14 @@ layer's new state into the cache it is given.  A vlm's prefix
 (``prefix_len``) attends bidirectionally in forward and prefill; decode
 is causal.  The audio family's stack is the dense one.
 
-Where autograd records (the trainable dense and audio stacks),
-``stack_forward`` runs each layer under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` around each scanned layer): only the layer
-inputs are kept, and the backward runs each layer's forward again.
+Where autograd records, ``stack_forward`` runs each scanned body of the
+reference under ``torch.utils.checkpoint`` (its ``jax.checkpoint``): a
+dense or MoE block, a local/global pair, an rwkv6 layer, and zamba2's
+group of ``attn_every`` Mamba2 layers with the shared block and the
+group's LoRA.  Only each body's input is kept, and the backward runs the
+body's forward again, so a MoE layer's recompute must route as its first
+forward did: the dispatch sorts stably and the combine sums in a fixed
+order.
 """
 from __future__ import annotations
 
@@ -62,7 +66,6 @@ from .moe import MoE
 from .rwkv6 import RWKVLayer
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
-TRAINABLE = ("dense", "audio")
 LORA_RANK = 128      # zamba2's per-invocation adapter rank
 
 
@@ -82,24 +85,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} mamba layers do not split "
                          f"into groups of {cfg.attn_every}")
-
-
-def trainable(cfg: ModelConfig) -> bool:
-    """Whether the port trains this config: the dense and audio families
-    with global attention."""
-    return cfg.family in TRAINABLE and cfg.layer_pattern == "global"
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless :func:`trainable`."""
-    check_supported(cfg)
-    if not trainable(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training covers the dense and audio families with "
-            f"global attention, not family {cfg.family!r} with layer pattern "
-            f"{cfg.layer_pattern!r}; ROADMAP.md §1 queues the other families' "
-            "gradients (gemma2's window and softcap at hd 256, the vlm prefix, "
-            "the MoE aux, the rwkv6/mamba2 scans, zamba2's hd 80)")
 
 
 def _remat(fn, *args):
@@ -187,6 +172,10 @@ class Pair(nn.ModuleDict):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__({name: DenseBlock(cfg, device=device, dtype=dtype)
                           for name in ("local", "global")})
+
+    def forward(self, x, a_loc: AttnConfig, a_glo: AttnConfig, positions):
+        x = self["local"](x, a_loc, positions)
+        return self["global"](x, a_glo, positions)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for block in self.values():
@@ -424,32 +413,39 @@ def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
             attn_cfg_for(cfg, None, prefix_len))
 
 
+def _hybrid_group(layers: nn.ModuleDict, cfg: ModelConfig, g: int, x, x0,
+                  acfg: AttnConfig, positions):
+    """Group ``g`` of zamba2's stack: its Mamba2 layers, then the shared
+    block with the group's LoRA (the reference's ``gbody``)."""
+    for i in _group_layers(cfg, g):
+        x, _ = layers["mamba"][i](x)
+    return layers["shared"](x, x0, layers["lora"][g], acfg, positions)
+
+
 def stack_forward(layers: nn.Module, x, cfg: ModelConfig, positions,
                   prefix_len: int = 0):
-    """Run the full layer stack.  x: (B, S, D).  Returns (x, aux_loss): the
-    sum of the MoE layers' aux losses, else 0."""
+    """Run the full layer stack, each body checkpointed (the module
+    docstring).  x: (B, S, D).  Returns (x, aux_loss): the sum of the MoE
+    layers' aux losses, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     acfg = attn_cfg_for(cfg, None, prefix_len)
     if cfg.family == "moe":
         for block in _dense_layers(layers):
-            x = block(x, acfg, positions)
+            x = _remat(block, x, acfg, positions)
         for block in layers["moe_layers"]:
-            x, a = block(x, acfg, positions)
+            x, a = _remat(block, x, acfg, positions)
             aux = aux + a
     elif cfg.family == "ssm":
         for layer in layers:
-            x, _ = layer(x)
+            x, _ = _remat(layer, x)
     elif cfg.family == "hybrid":
         x0 = x
-        for g, lora in enumerate(layers["lora"]):
-            for i in _group_layers(cfg, g):
-                x, _ = layers["mamba"][i](x)
-            x = layers["shared"](x, x0, lora, acfg, positions)
+        for g in range(_groups(cfg)):
+            x = _remat(_hybrid_group, layers, cfg, g, x, x0, acfg, positions)
     elif cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
         for pair in layers:
-            x = pair["local"](x, a_loc, positions)
-            x = pair["global"](x, a_glo, positions)
+            x = _remat(pair, x, a_loc, a_glo, positions)
     else:
         for block in layers:
             x = _remat(block, x, acfg, positions)

@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from ..models.model import CausalLM
-from ..models.transformer import check_trainable
 from ..optim.adamw import AdamWConfig, apply_updates
 
 
@@ -34,7 +33,6 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
     """compressor: optional ``repro_torch.dist.compress.Compressor``
     applied to the grads (quantise -> dequantise, stateless) before the
     update."""
-    check_trainable(model.cfg)
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
 
     def grads_of(batch):

@@ -52,6 +52,13 @@ from repro_torch.models.model import CausalLM
 from repro_torch.optim import adamw as p_adamw
 from repro_torch.train.step import make_eval_step, make_train_step
 
+from _train_parity import batch as _batch
+from _train_parity import check_loss_and_grads
+from _train_parity import f32 as _f32
+from _train_parity import pair as _pair
+from _train_parity import ref_leaf as _ref_leaf
+from _train_parity import rel as _rel
+
 TRAINED = ("starcoder2-3b", "musicgen-large")
 
 
@@ -62,33 +69,6 @@ def _no_signal_handlers(monkeypatch):
     for mod in (r_launch, p_launch):
         handler = mod.PreemptionHandler
         monkeypatch.setattr(mod, "PreemptionHandler", lambda h=handler: h(signals=()))
-
-
-def _f32(cfg):
-    return dataclasses.replace(cfg, dtype="float32")
-
-
-def _pair(arch, seed=0):
-    """(reference model, its params, port model holding them), float32."""
-    cfg = _f32(r_get_smoke(arch))
-    ref = RModel(cfg)
-    params = ref.init(jax.random.PRNGKey(seed))
-    model = convert.lm_params_from_reference(jax.tree.map(np.asarray, params),
-                                             _f32(get_smoke(arch)),
-                                             device="cpu").requires_grad_()
-    return ref, params, model
-
-
-def _ref_leaf(tree, name):
-    """The reference array of port parameter ``name`` (its layer's slice)."""
-    path, layer = convert._reference_path(name)
-    for key in path:
-        tree = tree[key]
-    return np.asarray(tree if layer is None else tree[layer])
-
-
-def _rel(a, b):
-    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
 # --------------------------------------------------------------------------
@@ -278,43 +258,31 @@ def test_flash_attention_function_counts_no_launch_on_the_cpu():
 # --------------------------------------------------------------------------
 # models: loss and grads
 # --------------------------------------------------------------------------
-def _batch(cfg, b=2, s=32, seed=0):
-    cfg_d = p_tokens.DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed,
-        num_codebooks=cfg.num_codebooks if cfg.family == "audio" else 0)
-    return p_tokens.make_batch(cfg_d, 0)
-
-
 @pytest.mark.parametrize("arch", TRAINED)
 def test_loss_and_grads_match_reference(arch, monkeypatch):
     """Over 4 loss chunks (LOSS_CHUNK 8 of 32 positions), labels with the
     masked last position and a few more set to -1."""
-    monkeypatch.setattr(RModel, "LOSS_CHUNK", 8)
-    monkeypatch.setattr(CausalLM, "LOSS_CHUNK", 8)
-    ref, params, model = _pair(arch)
-    batch = _batch(ref.cfg)
-    batch["labels"][0, :3] = -1
-    (want, r_metrics), r_grads = jax.value_and_grad(ref.loss, has_aux=True)(
-        params, {k: jnp.asarray(v) for k, v in batch.items()})
-    loss, metrics = model.loss(torch.as_tensor(batch["tokens"]).long(),
-                               torch.as_tensor(batch["labels"]))
-    loss.backward()
-    assert _rel(float(loss), float(want)) <= 1e-5
-    assert _rel(float(metrics["ce"]), float(r_metrics["ce"])) <= 1e-5
-    for name, p in model.named_parameters():
-        assert p.grad is not None, name
-        assert _rel(p.grad.numpy(), _ref_leaf(r_grads, name)) <= 1e-5, name
+    check_loss_and_grads(arch, monkeypatch)
 
 
-def test_untrainable_families_raise():
-    for arch in ("gemma2-2b", "deepseek-moe-16b", "rwkv6-3b", "zamba2-2.7b",
-                 "paligemma-3b"):
-        model = CausalLM(get_smoke(arch), device="cpu", seed=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.loss(torch.zeros(1, 8, dtype=torch.long),
-                       torch.zeros(1, 8, dtype=torch.long))
-        logits, _ = model.forward(torch.zeros(1, 4, dtype=torch.long))
-        assert not logits.requires_grad        # forward records nothing
+@pytest.mark.parametrize("arch", R_ARCHS)
+def test_every_family_records_grads(arch):
+    """Under grad ``forward`` records (the logits carry a graph and a
+    backward reaches every parameter); under ``no_grad`` it records
+    nothing."""
+    cfg = get_smoke(arch)
+    model = CausalLM(cfg, device="cpu", seed=0)
+    shape = (1, 8, cfg.num_codebooks) if cfg.family == "audio" else (1, 8)
+    tokens = torch.zeros(shape, dtype=torch.long)
+    prefix = (torch.zeros(1, cfg.prefix_tokens, cfg.d_model) if cfg.family == "vlm"
+              else None)
+    with torch.no_grad():
+        logits, aux = model.forward(tokens, prefix)
+    assert not logits.requires_grad and not aux.requires_grad
+    logits, aux = model.forward(tokens, prefix)
+    assert logits.grad_fn is not None
+    (logits.float().square().mean() + aux).backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize("arch,microbatches", [("starcoder2-3b", 1),
@@ -343,13 +311,19 @@ def test_three_train_steps_match_reference(arch, microbatches):
     assert np.isfinite(float(metrics["loss"])) and not metrics["loss"].requires_grad
 
 
-def test_server_sees_the_weights_after_a_train_step():
+# one arch of each stacked-tree shape: one list of layers, zamba2's
+# mamba/shared/lora groups, deepseek's dense_layers/moe_layers
+TREES = ("starcoder2-3b", "zamba2-2.7b", "deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("arch", TREES)
+def test_server_sees_the_weights_after_a_train_step(arch):
     """A parameter that trains is cast anew at each read: a prefill after
     an optimizer step reads the new weights and keeps no bf16 copy.  A
     server's frozen parameters keep their copies, keyed on each
     parameter's version: loading the trained weights in place replaces
     them."""
-    cfg = get_smoke("starcoder2-3b")               # bfloat16 compute
+    cfg = get_smoke(arch)                          # bfloat16 compute
     model = CausalLM(cfg, device="cpu", seed=0)
     server = CausalLM(cfg, device="cpu", seed=0).requires_grad_(False)
     toks = torch.as_tensor(_batch(cfg)["tokens"]).long()
@@ -390,14 +364,15 @@ def test_launcher_defaults_to_cuda(monkeypatch):
         p_launch.main(["--smoke", "--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", TREES)
 @pytest.mark.parametrize("first", ["jax", "torch"])
-def test_training_checkpoint_resumes_across_packages(first, tmp_path, monkeypatch):
+def test_training_checkpoint_resumes_across_packages(first, arch, tmp_path, monkeypatch):
     """One package trains 2 steps and saves; the other resumes for step 3.
     Step 3's loss equals that of a 3-step run in one package (float32
     compute in both launchers)."""
     monkeypatch.setattr(r_launch, "get_smoke", lambda a: _f32(r_get_smoke(a)))
     monkeypatch.setattr(p_launch, "get_smoke", lambda a: _f32(get_smoke(a)))
-    args = ["--arch", "starcoder2-3b", "--smoke", "--batch", "2", "--seq", "32",
+    args = ["--arch", arch, "--smoke", "--batch", "2", "--seq", "32",
             "--ckpt-every", "2", "--log-every", "1"]
     run = {"jax": lambda a: r_launch.main(a),
            "torch": lambda a: p_launch.main(a + ["--device", "cpu"])}
