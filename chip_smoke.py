@@ -184,7 +184,25 @@ Phases (any failure exits non-zero and prints no result line):
    reads as often as it runs (a MoE layer's top-6 of 64 routed experts,
    zamba2's shared block 9 times) plus the attention's products over each
    launch's visible pairs, not the WKV's or the SSD's own products;
-9. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
+9. the LM across ranks: (a) expert parallelism (``moe_ffn_ep``) at
+   deepseek-moe-16b's layer width (d 2048, 64 routed experts top-6 of d_ff
+   1408, 2 shared), M = 4 ``LocalComm`` ranks on the card, 4096 tokens a
+   rank, float32, against ``moe_ffn`` on the same 16,384 tokens with the
+   ranks' routing replayed: at capacity factor 2.0 no pair dropped
+   (asserted), outputs within 1e-5 of the largest and the aux within 1e-6
+   relative; each path's drop fraction at the config's 1.25; (b)
+   deepseek-moe-16b at full width and 4 layers through the ranked path
+   (``repro_torch.dist.zero``: ZeRO-3 with FSDP2, experts over "model"),
+   one NCCL rank per visible card, mesh 1 x W, spawned by the launcher's
+   ``spawn_ranks`` and trained by its loop (``tools/train_ranks.py``), and
+   the unsharded model through the same loop in this process: 2 warm-up
+   and 3 timed steps on max(2, W) x 4096 tokens, then one profiled; K3's
+   counters zeroed just before the timed steps and read just after on
+   every rank (forward 3 x 2 x 4, backward 3 x 4); step 0's loss and grad
+   norm held to the unsharded step's on the same batch from the same seed
+   (1e-6 relative at W = 1, where nothing is split; 1e-3 and 1e-2 at W >
+   1); both runs' ms/step and profiled step printed side by side;
+10. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
    at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, and K3's backward,
@@ -249,6 +267,7 @@ from repro_torch.dist.lbm import ShardedLBM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.tokens import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.dist.comm import LocalComm  # noqa: E402
 from repro_torch.kernels import collide as k2  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
@@ -260,10 +279,13 @@ from repro_torch.optim.adamw import AdamWConfig, init_state  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sim.service import SimService  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
+from tools.train_ranks import (BF16_PEAK, RankRun, active_params,  # noqa: E402
+                               attention_calls, attention_pairs, busy_us, measure,
+                               measure_rank, nvidia_smi, rank_summary)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,   # non-tensor-core
-              torch.bfloat16: 989e12}                       # dense tensor core
+              torch.bfloat16: BF16_PEAK}                    # dense tensor core
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # timed steps per full-size run: the spheres case's velocity inlet diverges
 # at dead-end inlet nodes (in the JAX package too) and turns non-finite
@@ -371,7 +393,8 @@ class TrainRun(NamedTuple):
 # paligemma's 256 prefix positions come on top), batch 2, bf16 compute,
 # float32 parameters and AdamW state, each scanned body checkpointed.
 # deepseek-moe-16b keeps its first dense layer and 3 MoE layers of 27: its
-# 28 layers' state (16.4 B parameters, 262 GB) waits for sharding
+# 28 layers' state (16.4 B parameters, 262 GB) needs four cards
+# (tools/train_ranks.py; phase 9 runs the ranked path at 4 layers)
 TRAIN_RUNS = (TrainRun("starcoder2-3b", 2, 4096, 2, 5),
               TrainRun("musicgen-large", 2, 4096, 2, 3),
               TrainRun("gemma2-2b", 2, 4096, 2, 3),
@@ -379,6 +402,8 @@ TRAIN_RUNS = (TrainRun("starcoder2-3b", 2, 4096, 2, 5),
               TrainRun("rwkv6-3b", 2, 4096, 2, 3),
               TrainRun("zamba2-2.7b", 2, 4096, 2, 3),
               TrainRun("deepseek-moe-16b", 2, 4096, 2, 3, layers=4))
+
+
 # the kernel names of K3's forward and backward in a profiler trace
 K3_FWD_NAME, K3_BWD_NAME = "flash_fwd", "flash_bwd"
 
@@ -426,46 +451,6 @@ def kernel_entry(cfg) -> str:
     return "flash_attention_moe" if cfg.family == "moe" else "flash_attention"
 
 
-def attention_calls(cfg) -> int:
-    """K3 launches per prefill: one per attention layer (zamba2's shared
-    block once per group; none in rwkv6)."""
-    if cfg.family == "ssm":
-        return 0
-    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
-
-
-def attention_pairs(cfg, s: int) -> float:
-    """Visible (query, key) pairs of one sequence of ``s`` positions summed
-    over a forward's attention calls: gemma2's local layers under their
-    window, a vlm's under its prefix square, else causal."""
-    pos = torch.arange(s)
-
-    def pairs(**kw) -> float:
-        return float(k3.visible_mask(pos, pos, **kw).sum())
-
-    if cfg.layer_pattern == "local_global":
-        return cfg.n_layers // 2 * (pairs(window=cfg.local_window) + pairs())
-    prefix = cfg.prefix_tokens if cfg.family == "vlm" else 0
-    return attention_calls(cfg) * pairs(prefix_len=prefix)
-
-
-def active_params(model, cfg) -> int:
-    """N of a step's 6 N tokens: the parameters one token's forward reads,
-    each as often as it runs -- a MoE layer's routed experts count top_k of
-    n_experts, zamba2's shared block counts once per call."""
-    n = model.param_count()
-    if cfg.family == "moe":
-        e, k = cfg.moe.n_experts, cfg.moe.top_k
-        for block in model.layers["moe_layers"]:
-            routed = sum(p.numel() for name, p in block.moe.named_parameters()
-                         if name in ("up", "gate", "down"))
-            n -= routed // e * (e - k)
-    if cfg.family == "hybrid":
-        shared = sum(p.numel() for p in model.layers["shared"].parameters())
-        n += (attention_calls(cfg) - 1) * shared
-    return n
-
-
 def call_mask(kw: dict) -> str:
     """The mask of one K3 call's keyword arguments."""
     if kw.get("window") is not None:
@@ -475,13 +460,6 @@ def call_mask(kw: dict) -> str:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 # cycles of a spin kernel that keeps the card busy while the host enqueues
@@ -633,15 +611,6 @@ def traced(fn, warm, what: str,
             f"included: {session}): pass discarded")
     raise AssertionError(f"the profiler did not trace all of K1's {launched} "
                          f"launches in {what}, in each of {PROFILE_PASSES} passes")
-
-
-def busy_us(dev) -> float:
-    """The union of device op intervals (us)."""
-    busy, end = 0.0, -1.0
-    for start, stop, _ in dev:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    return busy
 
 
 def rw_only_design(f: torch.Tensor, out: torch.Tensor, nbytes: int) -> str:
@@ -902,6 +871,7 @@ class Smoke:
         self.k3_bwd: dict[str, dict] = {}
         self.k3_bwd_kernels: dict[str, dict] = {}
         self.train: dict[str, dict] = {}
+        self.ranks: dict[str, dict] = {}
 
     # ------------------------------------------------------------ phase 1
     def build_kernels(self) -> None:
@@ -2502,6 +2472,134 @@ class Smoke:
         if cfg.family == "hybrid":
             self.ssd_decay_range(model, cfg, batches[-1])
 
+    # ------------------------------------------------------------ phase 9
+    def ep_at_deepseek_width(self) -> None:
+        """Expert parallelism (``moe_ffn_ep``) at deepseek-moe-16b's layer
+        width (d 2048, 64 routed experts top-6 of d_ff 1408, 2 shared), M =
+        4 ``LocalComm`` ranks on this card, 4096 tokens a rank, float32
+        (TF32 off), against ``moe_ffn`` on the same 16,384 tokens with the
+        ranks' routing replayed (a product over other rows can round a
+        logit differently and flip a top-6 choice): at a capacity factor of
+        2.0, where neither drops a pair (asserted), outputs within 1e-5 of
+        the largest and the aux within 1e-6 relative; then each path's drop
+        fraction at the config's 1.25."""
+        cfg = get_config("deepseek-moe-16b")
+        m_ranks, n_tok = 4, 4096
+        gen = torch.Generator(device=self.dev).manual_seed(7)
+        moe = moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp, device=self.dev)
+        moe.reset_parameters(gen)
+        p = {**moe.weights(torch.float32), **moe.experts.weights(torch.float32)}
+        e_loc = cfg.moe.n_experts // m_ranks
+        ps = [{**p, **{k: p[k][r * e_loc:(r + 1) * e_loc] for k in ("up", "gate", "down")}}
+              for r in range(m_ranks)]
+        xs = [torch.randn(1, n_tok, cfg.d_model, generator=gen, device=self.dev)
+              for _ in range(m_ranks)]
+        comm = LocalComm(1, m_ranks)
+        routes, orig = [], moe_mod.route
+
+        def recording(router, tokens, mcfg):
+            routes.append(orig(router, tokens, mcfg))
+            return routes[-1]
+
+        def replayed(router, tokens, mcfg):
+            return tuple(torch.cat(parts) for parts in zip(*routes[-m_ranks:]))
+
+        for cf in (2.0, cfg.moe.capacity_factor):
+            mcfg = dataclasses.replace(cfg.moe, capacity_factor=cf)
+            stats = {}
+            with torch.no_grad():
+                moe_mod.route = recording
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs, auxs = moe_mod.moe_ffn_ep(ps, xs, mcfg, cfg.mlp, comm, stats=stats)
+                    ep_s = time.perf_counter() - t0
+                    moe_mod.route = replayed
+                    x = torch.cat(xs, dim=1)
+                    want, want_aux = moe_mod.moe_ffn(p, x, mcfg, cfg.mlp)
+                finally:
+                    moe_mod.route = orig
+                _, _, top_e = replayed(None, None, None)
+                _, _, keep = moe_mod.dispatch(top_e.sort(-1)[0].reshape(-1), mcfg.n_experts,
+                                              moe_mod.capacity(mcfg, x.shape[1]))
+            ep_drop = (stats["dropped_send"] + stats["dropped_local"]) / stats["pairs"]
+            plain_drop = 1.0 - float(keep.float().mean())
+            err = max_err(torch.cat(outs, dim=1), want)
+            scale = float(want.abs().max())
+            aux_err = abs(float(auxs[0]) - float(want_aux)) / abs(float(want_aux))
+            log(f"[ep deepseek width cf {cf}] {m_ranks} LocalComm ranks x {n_tok} tokens, "
+                f"float32: dropped pairs: EP {ep_drop:.6f} (at the send buffers "
+                f"{stats['dropped_send']}, at the experts {stats['dropped_local']} of "
+                f"{stats['pairs']}), moe_ffn {plain_drop:.6f}; max |EP - moe_ffn| {err:.3e} "
+                f"(largest |out| {scale:.3e}); aux {float(auxs[0]):.8f} vs "
+                f"{float(want_aux):.8f} (rel {aux_err:.2e}); EP forward {ep_s * 1e3:.1f} ms "
+                "host time, first call")
+            if cf == 2.0:
+                if ep_drop or plain_drop:
+                    raise AssertionError(f"capacity factor 2.0 dropped pairs: EP {ep_drop}, "
+                                         f"moe_ffn {plain_drop}")
+                if err > 1e-5 * scale or aux_err > 1e-6:
+                    raise AssertionError(f"EP vs moe_ffn: {err} (scale {scale}), aux {aux_err}")
+        del moe, ps, p, xs, outs, want
+
+    def ranked_train(self) -> None:
+        """deepseek-moe-16b at full width and 4 layers through the ranked
+        path (``repro_torch.dist.zero``) on W = the visible cards, mesh 1 x
+        W, and unsharded in this process, both through the launcher's loop
+        (``tools.train_ranks.measure``/``measure_rank``): 2 warm-up and 3
+        timed steps on the global batch of max(2, W) x 4096 tokens, then
+        one profiled.  K3 must launch 2 x 4 and its backward 4 times a
+        timed step on every rank.  Step 0's loss and grad norm are held to
+        the unsharded step's: at W = 1 within 1e-6 relative (one rank
+        splits nothing: the step is the same arithmetic, and an H100 read
+        them bit for bit); at W > 1 the loss within 1e-3 and the grad norm
+        within 1e-2 (each rank's products and expert capacities see its
+        own rows: at W = 4 on four H100s this step read 3.3e-5 and 5.3e-4,
+        and the 28-layer model's step-0 loss and grad norm on 1 x 4 and 2 x
+        2 read 5.3e-5 and 2.7e-3 apart)."""
+        w = torch.cuda.device_count()
+        run = RankRun("deepseek-moe-16b", data=1, model=w, batch=max(2, w), seq=4096,
+                      warm=2, timed=3, layers=4)
+        results = measure(run)
+        summary = rank_summary(run, results)
+        log(summary["line"])
+        calls = 4
+        for r in results:
+            got = (r["k3_fwd"], r["k3_bwd"])
+            if got != (2 * calls * run.timed, calls * run.timed):
+                raise AssertionError(f"rank {r['rank']}: K3 launches {got} in {run.timed} steps")
+        torch.cuda.reset_peak_memory_stats()
+        one = measure_rank(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(rank_summary(run._replace(data=1, model=1), [one],
+                         label="unsharded deepseek-moe-16b, same loop")["line"])
+        ranked, plain = results[0].get("profile") or {}, one.get("profile") or {}
+        if ranked.get("kernels") and plain.get("kernels"):
+            names = sorted(set(ranked["kernels"]) | set(plain["kernels"]),
+                           key=lambda n: -abs(ranked["kernels"].get(n, 0.0)
+                                              - plain["kernels"].get(n, 0.0)))
+            def ms(side, n):
+                return f"{side[n]:.3f}" if n in side else "below its 12 longest"
+
+            log("[ranks deepseek-moe-16b vs one card] profiled step, rank 0 vs unsharded, "
+                "kernel time in ms (each side's 12 longest kernels): " + "; ".join(
+                    f"{n}: {ms(ranked['kernels'], n)} vs {ms(plain['kernels'], n)}"
+                    for n in names))
+        tol_loss, tol_gn = (1e-6, 1e-6) if w == 1 else (1e-3, 1e-2)
+        loss, gn = one["losses"][0], one["grad_norms"][0]
+        r_loss, r_gn = results[0]["losses"][0], results[0]["grad_norms"][0]
+        d_loss, d_gn = abs(r_loss - loss) / abs(loss), abs(r_gn - gn) / abs(gn)
+        log(f"[ranks deepseek-moe-16b vs one card] step 0 on the same {run.batch} x "
+            f"{run.seq} tokens: loss {r_loss!r} ranked vs {loss!r} unsharded (rel "
+            f"{d_loss:.2e}, tolerance {tol_loss:g}), grad norm {r_gn!r} vs {gn!r} (rel "
+            f"{d_gn:.2e}, tolerance {tol_gn:g}); ms/step {results[0]['step_ms']!r} ranked "
+            f"vs {one['step_ms']!r} unsharded")
+        if not (d_loss <= tol_loss and d_gn <= tol_gn):
+            raise AssertionError("the ranked step differs from the unsharded one")
+        self.ranks = {"deepseek-moe-16b": {**summary, "loss_rel": d_loss, "gn_rel": d_gn,
+                                           "unsharded_ms": one["step_ms"]}}
+
     def ssd_decay_range(self, model, cfg, batch) -> None:
         """The largest dt A of one forward over a training batch, over every
         Mamba2 layer and head: ``ssd_chunked`` takes log(a) of a = exp(-dt
@@ -2625,6 +2723,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     smoke.kernel_line_bwd()
     log(f"[train] phase in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    smoke.ep_at_deepseek_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke.ranked_train()
+    log(f"[ranks] phase in {time.perf_counter() - t1:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -28,6 +28,11 @@ imports it:
   ``pairs``; the moe family's ``dense_layers`` and ``moe_layers``;
   zamba2's ``mamba`` and its per-group ``lora``) are indexed on their
   leading axis; zamba2's ``shared`` block is one copy.
+* A model across ranks (``repro_torch.dist.zero.ranked_lm``, ``mesh=``
+  here) is filled leaf by leaf with each rank's shards of the reference's
+  whole leaves; going back, every rank gathers each leaf in turn and rank
+  0 gets the tree (the others None), so a sharded checkpoint is in the
+  reference's layout and resumes unsharded, and the reverse.
 * :func:`opt_state_to_reference` / :func:`opt_state_from_reference`
   carry the AdamW state (``repro_torch.optim.adamw``) across in the
   reference's layout ``{"m": tree, "v": tree, "count": int32}``, the
@@ -132,9 +137,10 @@ def ensemble_from_reference(f_np: np.ndarray, ensemble) -> None:
 # --------------------------------------------------------------------------
 def _reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
     """The reference pytree path of a port parameter name, and the index
-    into its stacked (n, ...) array (None for an unstacked one)."""
+    into its stacked (n, ...) array (None for an unstacked one).  A MoE's
+    routed experts (``moe.experts.up``) are the reference's ``moe.up``."""
     if name.startswith("layers."):
-        _, part, *rest = name.split(".")
+        _, part, *rest = [key for key in name.split(".") if key != "experts"]
         if part.isdigit():                       # one list of layers
             if rest[0] in ("local", "global"):   # a Pair's blocks
                 return ("stack", "pairs", *rest), int(part)
@@ -157,7 +163,7 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 def named_from_reference(tree: dict, like: dict[str, torch.Tensor]) -> dict:
     """{port name: numpy array} from a reference pytree in the parameters'
     layout (nested dicts of numpy arrays), for every name of ``like``
-    ({port name: tensor of the expected shape}).  Raises on a shape
+    ({port name: tensor of the expected shape, or the shape}).  Raises on a shape
     mismatch and on a reference leaf without a port counterpart."""
     out, seen = {}, set()
     for name, p in like.items():
@@ -166,9 +172,9 @@ def named_from_reference(tree: dict, like: dict[str, torch.Tensor]) -> dict:
         for key in path:
             node = node[key]
         arr = np.asarray(node if layer is None else node[layer])
-        if arr.shape != tuple(p.shape):
-            raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, "
-                             f"expected {tuple(p.shape)}")
+        want = tuple(getattr(p, "shape", p))
+        if arr.shape != want:
+            raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, expected {want}")
         out[name] = arr
         seen.add(path)
     leaves = set()
@@ -188,21 +194,39 @@ def named_from_reference(tree: dict, like: dict[str, torch.Tensor]) -> dict:
 
 
 def lm_params_from_reference(params_np: dict, cfg: ModelConfig,
-                             device=None) -> CausalLM:
+                             device=None, mesh=None) -> CausalLM:
     """A port model on ``device`` (None: the card) holding the reference's
     parameters, frozen for serving or comparison (``requires_grad_()``
-    makes them train)."""
-    model = CausalLM(cfg, device=device, seed=None).requires_grad_(False)
+    makes them train); with ``mesh`` (``launch.mesh.make_lm_mesh``), this
+    rank's shards of a model across its ranks (training)."""
+    if mesh is not None:
+        from .dist.zero import ranked_lm
+
+        model = ranked_lm(cfg, mesh, seed=None)
+    else:
+        model = CausalLM(cfg, device=device, seed=None).requires_grad_(False)
     load_params(model, params_np)
     return model
 
 
+def _fill(named: dict, tree: dict, place) -> None:
+    """Copy the reference tree's leaves into the tensors ``named`` ({port
+    name: tensor}, parameters or AdamW moments): whole, or with ``place``
+    (a model's ``placement`` across ranks) this rank's shards."""
+    like = named if place is None else place.shapes
+    with torch.no_grad():
+        for name, arr in named_from_reference(tree, like).items():
+            t = named[name]
+            if place is None:
+                t.copy_(_tensor(arr))
+            else:
+                part = place.local(name, t, _tensor(arr).to(t.device))
+                (t.to_local() if hasattr(t, "to_local") else t).copy_(part)
+
+
 def load_params(model: CausalLM, params_np: dict) -> None:
     """Copy a reference parameter pytree into ``model``'s parameters."""
-    named = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, arr in named_from_reference(params_np, named).items():
-            named[name].copy_(_tensor(arr))
+    _fill(dict(model.named_parameters()), params_np, model.placement)
 
 
 def _put(tree: dict, path: tuple[str, ...], value) -> None:
@@ -228,24 +252,43 @@ def named_to_reference(named: dict[str, torch.Tensor]) -> dict:
     return out
 
 
-def lm_params_to_reference(model: CausalLM) -> dict:
-    """The reference pytree of ``model``'s parameters, as numpy."""
-    return named_to_reference(dict(model.named_parameters()))
+def _to_reference(named: dict[str, torch.Tensor], model: CausalLM | None):
+    """:func:`named_to_reference`, each leaf gathered first where ``model``
+    is across ranks (every rank calls; rank 0 gets the tree, the others
+    None)."""
+    place = None if model is None else model.placement
+    if place is None:
+        return named_to_reference(named)
+    whole = {}
+    for name, t in named.items():
+        full = place.full(name, t)
+        if place.rank == 0:
+            whole[name] = full.cpu()
+    return named_to_reference(whole) if place.rank == 0 else None
 
 
-def opt_state_to_reference(state: dict) -> dict:
-    """The AdamW state in the reference's layout, as numpy."""
-    return {"m": named_to_reference(state["m"]), "v": named_to_reference(state["v"]),
-            "count": np.array(int(state["count"]), dtype=np.int32)}
+def lm_params_to_reference(model: CausalLM) -> dict | None:
+    """The reference pytree of ``model``'s parameters, as numpy (across
+    ranks: on rank 0, None elsewhere)."""
+    return _to_reference(dict(model.named_parameters()), model)
 
 
-def opt_state_from_reference(tree: dict, state: dict) -> None:
+def opt_state_to_reference(state: dict, model: CausalLM | None = None) -> dict | None:
+    """The AdamW state in the reference's layout, as numpy; ``model``:
+    the model across ranks whose sharded state this is (rank 0 gets the
+    tree, the others None)."""
+    m, v = _to_reference(state["m"], model), _to_reference(state["v"], model)
+    if m is None:
+        return None
+    return {"m": m, "v": v, "count": np.array(int(state["count"]), dtype=np.int32)}
+
+
+def opt_state_from_reference(tree: dict, state: dict, model: CausalLM | None = None) -> None:
     """Copy a reference AdamW state into the port's ``state`` (in place;
-    its m and v give the names and shapes)."""
-    with torch.no_grad():
-        for part in ("m", "v"):
-            for name, arr in named_from_reference(tree[part], state[part]).items():
-                state[part][name].copy_(_tensor(arr))
+    its m and v give the names and shapes; ``model``: the model across
+    ranks whose sharded state this is)."""
+    for part in ("m", "v"):
+        _fill(state[part], tree[part], None if model is None else model.placement)
     state["count"] = torch.tensor(int(np.asarray(tree["count"])), dtype=torch.int32)
 
 

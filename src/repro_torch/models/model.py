@@ -28,6 +28,8 @@ record.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -63,6 +65,7 @@ class CausalLM(CastParams):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
+        self.placement = None      # across ranks: repro_torch.dist.zero.ranked_lm
         kw = dict(device=self.device, dtype=torch_dtype(cfg.param_dtype))
         d = cfg.d_model
         audio = cfg.family == "audio"
@@ -221,4 +224,7 @@ class CausalLM(CastParams):
 
     # ------------------------------------------------------------- reporting
     def param_count(self) -> int:
+        """The model's parameters (across ranks: the whole model's)."""
+        if self.placement is not None:
+            return sum(math.prod(shape) for shape in self.placement.shapes.values())
         return sum(p.numel() for p in self.parameters())

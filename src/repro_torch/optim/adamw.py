@@ -9,6 +9,11 @@ last bits), and every update follows the reference's order of operations,
 so a step on the same parameters and gradients agrees with it to float32
 rounding.  ``convert.opt_state_to_reference`` carries the state into the
 reference's layout and back.
+
+For a model across ranks (``repro_torch.dist.zero``) the parameters, their
+gradients and m and v are sharded ``DTensor``s: each rank updates its own
+shards in place, and the gradient norm sums every rank's shards once
+(``group``: the process group over all ranks).
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..convert import _reference_path
 
@@ -55,8 +62,18 @@ def init_state(params: dict[str, torch.Tensor]) -> dict:
             "count": torch.zeros((), dtype=torch.int32)}
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor's own shard (the storage itself, under no_grad)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_norm(tree: dict[str, torch.Tensor], group=None) -> torch.Tensor:
+    """The 2-norm over every leaf; with ``group``, over the leaves' local
+    shards on every rank of it (each element held by one rank)."""
+    total = sum(torch.sum(torch.square(_local(x).float())) for x in tree.values())
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 def _decay_mask(path, ndim: int) -> bool:
@@ -90,21 +107,25 @@ def decays(name: str, ndim: int) -> bool:
 
 @torch.no_grad()
 def apply_updates(params: dict[str, torch.Tensor], opt_state: dict,
-                  grads: dict[str, torch.Tensor], cfg: AdamWConfig, step):
-    """One AdamW step, in place on ``params`` and the state's m and v.
-    Returns (params, opt_state, {"grad_norm", "lr"})."""
-    gn = global_norm(grads)
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
-        grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
+                  grads: dict[str, torch.Tensor], cfg: AdamWConfig, step, group=None):
+    """One AdamW step, in place on ``params`` and the state's m and v (their
+    local shards, where sharded; ``group`` as for :func:`global_norm`), one
+    leaf at a time.  Returns (params, opt_state, {"grad_norm", "lr"})."""
+    gn = global_norm(grads, group)
+    scale = (torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
+             if cfg.clip_norm is not None else None)
     lr_t = schedule_lr(cfg, step)
     lr = lr_t.item()
     count = opt_state["count"] + 1
     c1 = (1.0 - cfg.b1 ** count.float()).item()
     c2 = (1.0 - cfg.b2 ** count.float()).item()
     for name, p in params.items():
-        g32 = grads[name].float()
-        m, v = opt_state["m"][name], opt_state["v"][name]
+        g = _local(grads[name])
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        g32 = g.float()
+        p = _local(p)
+        m, v = _local(opt_state["m"][name]), _local(opt_state["v"][name])
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
         delta = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)

@@ -12,10 +12,17 @@ state only and updates the parameters in place:
 audio) and, for a vlm, ``prefix_embeds``, as numpy arrays or tensors.
 The metrics are 0-dim tensors: ``loss``, ``ce``, ``aux``, ``grad_norm``
 and ``lr``.
+
+A model across ranks (``repro_torch.dist.zero.ranked_lm``) takes the
+rank's rows of the global batch (``data.tokens.TokenPipeline(shard=rank,
+num_shards=W)``); its gradients are FSDP's means over the W ranks, each rank
+updates its own shards, and ``loss``, ``ce`` and ``aux`` are means over the
+ranks (the global batch's, where every rank has as many labels).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..models.model import CausalLM
 from ..optim.adamw import AdamWConfig, apply_updates
@@ -34,6 +41,14 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
     applied to the grads (quantise -> dequantise, stateless) before the
     update."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    place = model.placement
+    if place is not None and (compressor is not None or microbatches != 1):
+        raise ValueError(
+            "a model across ranks takes neither a compressor (its gradients are "
+            "reduce-scattered in float32 inside the backward, before a compressor "
+            f"could act) nor microbatches ({microbatches}: each backward would "
+            "reduce-scatter its own gradients; not ported)")
+    group = None if place is None else place.world.get_group()
 
     def grads_of(batch):
         """Backward of one batch: (loss, metrics, {name: grad})."""
@@ -44,7 +59,13 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        loss = loss.detach()
+        if place is not None:              # means over the ranks
+            for v in (loss, *metrics.values()):
+                dist.all_reduce(v, group=group)
+                v /= place.ranks
+        return loss, metrics, grads
 
     def train_step(opt_state: dict, batch: dict, step):
         if microbatches == 1:
@@ -67,7 +88,8 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
             loss = loss / microbatches
         if compressor is not None:
             grads = compressor.roundtrip(grads)
-        _, opt_state, opt_metrics = apply_updates(params, opt_state, grads, opt_cfg, step)
+        _, opt_state, opt_metrics = apply_updates(params, opt_state, grads, opt_cfg, step,
+                                                  group)
         return opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step

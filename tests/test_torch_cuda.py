@@ -660,3 +660,154 @@ def test_moe_prefills_are_bit_identical(dev):
     for group in ca:
         for name in ca[group]:
             assert torch.equal(ca[group][name], cb[group][name])
+
+
+# ------------------------------------------------------- the LM across cards
+def _ep_width_rank(dev, comm, ranks, data, model):
+    """moe_ffn_ep at deepseek-moe-16b's layer width (bf16, 1024 tokens a
+    rank, the config's capacity factor 1.25) over ``ranks`` of a ``data``
+    x ``model`` mesh, each rank with its own weight leaves: per rank its
+    output, aux and gradients of sum(out * w) + rank 0's aux."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("deepseek-moe-16b")
+    e_loc = cfg.moe.n_experts // model
+    g = torch.Generator(device=dev).manual_seed(3)
+    mod = M.MoE(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp, device=dev)
+    mod.reset_parameters(g)
+    full = {**mod.weights(torch.float32), **mod.experts.weights(torch.float32)}
+    xs = torch.randn(data * model, 1, 1024, cfg.d_model, generator=g, device=dev)
+    ws = torch.randn(xs.shape, generator=g, device=dev)
+    ps, leaves = [], []
+    for r in ranks:
+        own = {k: v.detach().to(torch.bfloat16 if k != "router" else v.dtype)
+               .clone().requires_grad_() for k, v in full.items()}
+        own["x"] = xs[r].to(torch.bfloat16).requires_grad_()
+        lo = r % model * e_loc
+        p = {k: own[k] for k in own if k not in ("up", "gate", "down", "x")}
+        p.update({k: own[k][lo:lo + e_loc] for k in ("up", "gate", "down")})
+        ps.append(p)
+        leaves.append(own)
+    outs, auxs = M.moe_ffn_ep(ps, [own["x"] for own in leaves], cfg.moe, cfg.mlp, comm)
+    obj = 0.0
+    for r, o, a in zip(ranks, outs, auxs):
+        obj = obj + (o.float() * ws[r]).sum() + (a if r == 0 else 0.0 * a)
+    obj.backward()
+    return [{"out": o.detach(), "aux": a.detach(),
+             **{k: v.grad for k, v in own.items()}} for o, a, own in zip(outs, auxs, leaves)]
+
+
+EP_PROG = r"""
+import sys, datetime
+import torch, torch.distributed as dist
+rank, world, addr, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, "tests")
+from test_torch_cuda import _ep_width_rank
+from repro_torch.dist.comm import DistComm
+from repro_torch.launch.mesh import make_lm_mesh
+dist.init_process_group("nccl", init_method=addr, rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=300))
+mesh = make_lm_mesh(2, world // 2)
+comm = DistComm(mesh.get_group("model"))
+res = _ep_width_rank(torch.device("cuda", rank), comm, [rank], 2, world // 2)[0]
+torch.save({k: v.cpu() for k, v in res.items()}, f"{out}/rank{rank}.pt")
+dist.destroy_process_group()
+print("RANK_OK")
+"""
+
+
+def test_nccl_ep_equals_local_comm_at_deepseek_width(dev, tmp_path):
+    """moe_ffn_ep over NCCL, a 2 x 2 mesh on four cards, gives LocalComm's
+    per-rank outputs, aux and gradients (all four ranks on the first card)
+    bit for bit."""
+    from repro_torch.dist.comm import LocalComm
+
+    if _cards() < 4:
+        pytest.skip("needs 4 cards")
+    from _ranks import run_ranks
+
+    run_ranks(EP_PROG, 4, tmp_path, timeout=600)
+    local = _ep_width_rank(dev, LocalComm(2, 2), range(4), 2, 2)
+    for r in range(4):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        for key, want in local[r].items():
+            assert torch.equal(got[key], want.cpu()), (r, key)
+
+
+STEP_PROG = r"""
+import sys, datetime
+import numpy as np, torch, torch.distributed as dist
+rank, world, addr, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, "tests")
+from test_torch_cuda import _smoke_step
+from repro_torch.launch.mesh import make_lm_mesh
+dist.init_process_group("nccl", init_method=addr, rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=300))
+res = _smoke_step(make_lm_mesh(2, 2), rank, world)
+if rank == 0:
+    torch.save(res, f"{out}/ranks.pt")
+dist.destroy_process_group()
+print("RANK_OK")
+"""
+
+
+def _smoke_step(mesh=None, rank=0, ranks=1):
+    """One train step of deepseek's smoke (float32, capacity factor 8: no
+    pair dropped) on 4 x 32 tokens from seed 0: metrics and the parameters
+    after it, whole (across ranks: gathered, on rank 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.dist.zero import ranked_lm
+    from repro_torch.models.model import CausalLM
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_smoke("deepseek-moe-16b")
+    cfg = dataclasses.replace(base, dtype="float32",
+                              moe=dataclasses.replace(base.moe, capacity_factor=8.0))
+    model = CausalLM(cfg, device="cuda", seed=0) if mesh is None else ranked_lm(cfg, mesh)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
+                          shard=rank, num_shards=ranks).next()
+    _, m = step(init_state(dict(model.named_parameters())), batch, 0)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "params": lm_params_to_reference(model)}
+
+
+def test_nccl_smoke_step_on_2x2_matches_one_card(dev, tmp_path):
+    """A 2 x 2 mesh on four cards (ZeRO-3 over 4, experts over 2) takes
+    the one-card step: metrics within 1e-5 relative, parameters after the
+    step within 1e-5 absolute (values of order 0.02)."""
+    if _cards() < 4:
+        pytest.skip("needs 4 cards")
+    from _ranks import run_ranks
+
+    run_ranks(STEP_PROG, 4, tmp_path, timeout=600)
+    got = torch.load(tmp_path / "ranks.pt", weights_only=False)
+    want = _smoke_step()
+    for key, value in want["metrics"].items():
+        assert got["metrics"][key] == pytest.approx(value, rel=1e-5), key
+
+    def walk(a, b, path=""):
+        if isinstance(b, dict):
+            assert a.keys() == b.keys(), path
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=path)
+
+    walk(got["params"], want["params"])
+
+
+def test_train_launcher_refuses_more_ranks_than_cards(dev):
+    from repro_torch.launch import train
+
+    cards = _cards()
+    with pytest.raises(ValueError, match="cards"):
+        train.main(["--arch", "deepseek-moe-16b", "--smoke", "--data", "1", "--model",
+                    str(cards + 1), "--batch", str(cards + 1), "--steps", "1"])

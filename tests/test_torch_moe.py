@@ -114,7 +114,9 @@ def test_moe_ffn_matches_reference(kind, n_shared, capacity_factor):
     got, aux = PMoE.moe_ffn(tp, torch.as_tensor(x), mine, kind)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=0)
     assert abs(float(aux) - float(want_aux)) <= 1e-6
-    assert PMoE.moe_ffn_auto is PMoE.moe_ffn
+    # with no "model" comm (one rank) the dispatcher takes moe_ffn
+    auto, auto_aux = PMoE.moe_ffn_auto(tp, torch.as_tensor(x), mine, kind)
+    assert torch.equal(auto, got) and torch.equal(auto_aux, aux)
     tokens = torch.as_tensor(x).reshape(-1, x.shape[-1])
     _, _, top_e = PMoE.route(tp["router"], tokens, mine)
     _, _, keep = PMoE.dispatch(top_e.reshape(-1), mine.n_experts,

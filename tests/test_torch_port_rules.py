@@ -31,8 +31,9 @@ import repro_torch.dist.lbm, repro_torch.launch.mesh
 import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
 import repro_torch.optim.adamw, repro_torch.train.step, repro_torch.data.tokens
 import repro_torch.dist.compress, repro_torch.dist.ft, repro_torch.launch.train
+import repro_torch.dist.sharding, repro_torch.dist.comm, repro_torch.dist.zero
 import chip_smoke
-import tools.k3_sass
+import tools.k3_sass, tools.train_ranks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
@@ -41,9 +42,10 @@ print("BAD", bad)
 
 
 def test_port_and_chip_smoke_load_no_jax_or_reference():
-    """Every module of the port, chip_smoke.py and tools/k3_sass.py (which
-    run on the card's machine, where there is no JAX) import neither jax
-    nor the reference package."""
+    """Every module of the port (the sharding rules, the comms and the
+    ranked LM among them), chip_smoke.py, tools/k3_sass.py and
+    tools/train_ranks.py (which run on the card's machine, where there is
+    no JAX) import neither jax nor the reference package."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                                        str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
@@ -74,6 +76,14 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     assert SimService(device="cpu").registry.device.type == "cpu"
+
+
+def test_lm_mesh_defaults_to_cuda(monkeypatch):
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_lm_mesh(1, 1)
 
 
 def test_sharded_engine_defaults_to_cuda(monkeypatch):
