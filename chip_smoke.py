@@ -202,16 +202,51 @@ Phases (any failure exits non-zero and prints no result line):
    norm held to the unsharded step's on the same batch from the same seed
    (1e-6 relative at W = 1, where nothing is split; 1e-3 and 1e-2 at W >
    1); both runs' ms/step and profiled step printed side by side;
-10. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
+10. tensor and sequence parallelism over "model" (``repro_torch.dist.tp``)
+   with M = 4 ``LocalComm`` ranks on the card, float32 parameters, bf16
+   compute, each held to the unsharded layer on the same input with the
+   stated tolerance (``TP_RATIO``): (a) chatglm3-6b's block (2 KV heads:
+   each rank holds half a KV head's columns and gathers K and V) at B 1 x
+   S 4096, forward and backward; (b) moonshot-v1-16b-a3b's MoE layer at B 1
+   x S 2048, forward, with the sequence split, the shared experts over ff
+   and the routed experts over "model" (capacity factor 2.0: no pair
+   dropped, asserted; the unsharded layers replay the ranks' routing);
+   (c) the slice's main path: moonshot-v1-16b-a3b at full width cut to 2
+   layers (its dense layer and one MoE layer), split over the 4 ranks, a
+   2048-token prefill (K3's counters zeroed just before and read just
+   after: 4 ranks x 2 layers) and 4 greedy decode steps, the logits equal
+   on every rank and finite; the unsharded model in bf16 and in float32
+   fed the same tokens with the ranks' routing replayed, and the TP
+   prefill's and each decode step's logits held to ``TP_RATIO`` as (a) and
+   (b); the TP greedy token is float32's wherever float32's top-2 margin
+   exceeds twice the unsharded bf16 model's largest logit error; K3 at one
+   rank's shape there (S 2048, H = KVH = 4,
+   hd 128, causal) held to its plain version (``error_bound``) and timed
+   beside SDPA and its operations bound (``flash_attention_tp``);
+   (d) the four ``examples/torch`` twins at their own sizes
+   (``train_lm`` at ``--steps 20``), each in its own process: each exits 0
+   and its last line's numbers are finite;
+11. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
-   at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, and K3's backward,
+   at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, ``_tp`` at
+   moonshot's per-rank shape under tensor parallelism, and K3's backward,
    ``flash_attention_bwd``, with its launches in starcoder2's timed
    training steps, its launches per step in each training run, its
    numbers at starcoder2's layer shape, the kernel of each of its widths
    and its numbers at the other layers of (b)), the
    ``nvidia-smi`` line and, last, the result line ``{"ok": true,
    "device": {...}}``.
+
+Tensor parallelism (phase 10): the sharded bf16 layer and the unsharded
+bf16 layer are each held to the float32 layer on the same weights and
+input, norm-wise per output (and per gradient).  Where the unsharded
+layer rounds one product of a row-parallel weight, the sharded one rounds
+its M partial products and their M - 1 sums (in bf16, on the comm): for
+partials of norm |a| / sqrt(M) that adds rounding error of norm about
+2**-9 |a| sqrt((2M - 1) / M) < sqrt(2) 2**-9 |a|, so the sharded layer's
+distance to float32 stays within (1 + sqrt(2)) of the unsharded one's;
+``TP_RATIO`` = 2.5 is allowed.
 
 Tolerances: 1e-12 absolute in float64, 1e-5 absolute in float32 on values
 of order 0.1 — the kernels sum in another order than the plain versions
@@ -273,20 +308,29 @@ from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.model import CausalLM  # noqa: E402
+from repro_torch.models.model import CausalLM, decode_ranks, prefill_ranks  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_state  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sim.service import SimService  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
-from tools.train_ranks import (BF16_PEAK, RankRun, active_params,  # noqa: E402
+from repro_torch.dist import tp  # noqa: E402
+from repro_torch.dist.sharding import param_specs  # noqa: E402
+from repro_torch.hw import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from tools.train_ranks import (RankRun, active_params,  # noqa: E402
                                attention_calls, attention_pairs, busy_us, measure,
                                measure_rank, nvidia_smi, rank_summary)
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,   # non-tensor-core
-              torch.bfloat16: BF16_PEAK}                    # dense tensor core
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the sharded bf16 layer's norm-wise distance to the float32 layer, over
+# the unsharded bf16 layer's (module docstring, phase 10)
+TP_RATIO = 2.5
+TP_RANKS = 4
+# the example twins, their arguments and time limits (s)
+EXAMPLES = (("quickstart.py", (), 300), ("sparse_flow.py", (), 300),
+            ("serve_lm.py", (), 300), ("train_lm.py", ("--steps", "20"), 600))
 # timed steps per full-size run: the spheres case's velocity inlet diverges
 # at dead-end inlet nodes (in the JAX package too) and turns non-finite
 # near step 170, so every run restarts from t = 0 and stays well short
@@ -2553,10 +2597,10 @@ class Smoke:
         the unsharded step's: at W = 1 within 1e-6 relative (one rank
         splits nothing: the step is the same arithmetic, and an H100 read
         them bit for bit); at W > 1 the loss within 1e-3 and the grad norm
-        within 1e-2 (each rank's products and expert capacities see its
-        own rows: at W = 4 on four H100s this step read 3.3e-5 and 5.3e-4,
-        and the 28-layer model's step-0 loss and grad norm on 1 x 4 and 2 x
-        2 read 5.3e-5 and 2.7e-3 apart)."""
+        within 1e-2 (the partial sums over "model" round in bf16 and the
+        expert capacities count each rank's sequence shard; with every rank
+        on its own rows, before tensor parallelism, this step read 3.3e-5
+        and 5.3e-4 at W = 4 on four H100s)."""
         w = torch.cuda.device_count()
         run = RankRun("deepseek-moe-16b", data=1, model=w, batch=max(2, w), seq=4096,
                       warm=2, timed=3, layers=4)
@@ -2599,6 +2643,291 @@ class Smoke:
             raise AssertionError("the ranked step differs from the unsharded one")
         self.ranks = {"deepseek-moe-16b": {**summary, "loss_rel": d_loss, "gn_rel": d_gn,
                                            "unsharded_ms": one["step_ms"]}}
+
+    # ----------------------------------------------------------- phase 10
+    def tp_ranks_of(self, module, prefix: str, cfg) -> list:
+        """TP_RANKS copies of ``module`` (named ``prefix.*`` as in a model)
+        cut to each model rank's shards under the rules of a 1 x TP_RANKS
+        mesh, each marked with its ``tp.Rank`` over one ``LocalComm``."""
+        import copy
+
+        comm = LocalComm(1, TP_RANKS)
+        specs = param_specs({f"{prefix}.{n}": p.shape for n, p in module.named_parameters()},
+                            tp.rules_for(cfg, 1, TP_RANKS))
+        out = []
+        for m in range(TP_RANKS):
+            part = copy.deepcopy(module)
+            tp.shard_module_(part, prefix, specs, m, TP_RANKS)
+            rank = tp.Rank(comm, m, TP_RANKS, tp.rules_for(cfg, 1, TP_RANKS))
+            for sub in part.modules():
+                if isinstance(sub, (transformer.DenseBlock, transformer.MoEBlock)):
+                    sub.tp = rank
+                if isinstance(sub, moe_mod.MoE):
+                    sub.comm = comm
+            out.append(part)
+        return out
+
+    @staticmethod
+    def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def tp_check(self, what: str, got: dict, plain: dict, ref: dict) -> None:
+        """Each output's (and gradient's) sharded bf16 and unsharded bf16
+        distances to float32, norm-wise; the first within TP_RATIO of the
+        second."""
+        worst = 0.0
+        parts = []
+        for name in ref:
+            d_tp, d_u = self.norm_rel(got[name], ref[name]), self.norm_rel(plain[name], ref[name])
+            ratio = d_tp / max(d_u, 1e-30)
+            worst = max(worst, ratio)
+            parts.append(f"{name} {d_tp:.3e} vs {d_u:.3e}")
+            if not ratio <= TP_RATIO:
+                raise AssertionError(f"{what} {name}: sharded bf16 {d_tp:.3e} from float32, "
+                                     f"unsharded bf16 {d_u:.3e} (ratio {ratio:.3f} > "
+                                     f"{TP_RATIO})")
+        log(f"[tp {what}] ||bf16 - float32|| / ||float32||, sharded vs unsharded: "
+            + "; ".join(parts) + f"; worst ratio {worst:.3f} (allowed {TP_RATIO})")
+
+    def tp_block_chatglm3(self) -> None:
+        cfg = get_config("chatglm3-6b")
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+        block = transformer.DenseBlock(cfg, device=self.dev)
+        block.reset_parameters(gen)
+        ranks = self.tp_ranks_of(block, "layers.0", cfg)
+        b, s = 1, 4096
+        acfg = transformer.attn_cfg_for(cfg, None)
+        x = torch.randn(b, s, cfg.d_model, generator=gen, device=self.dev)
+        dout = torch.randn(b, s, cfg.d_model, generator=gen, device=self.dev)
+        pos = torch.arange(s, device=self.dev)[None]
+        names = [n for n, _ in block.named_parameters()]
+
+        def unsharded(dtype):
+            xi = x.detach().to(dtype).clone().requires_grad_()
+            out = block(xi, acfg, pos)
+            out.backward(dout.to(dtype))
+            grads = {n: p.grad.clone() for n, p in block.named_parameters()}
+            block.zero_grad(set_to_none=True)
+            return {"out": out.detach(), "dx": xi.grad, **grads}
+
+        ref, plain = unsharded(torch.float32), unsharded(torch.bfloat16)
+        xs = [c.detach().requires_grad_() for c in x.to(torch.bfloat16).chunk(TP_RANKS, 1)]
+        k3.flash_attention.launches = k3.flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = transformer.body_forward(ranks, xs, acfg, pos, sp=True)
+        sum((o * g).sum() for o, g in
+            zip(outs, dout.to(torch.bfloat16).chunk(TP_RANKS, 1))).backward()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        launches = (k3.flash_attention.launches, k3.flash_attention_bwd.launches)
+        if launches != (TP_RANKS, TP_RANKS):
+            raise AssertionError(f"chatglm3 TP block: K3 launches {launches}")
+        specs = param_specs({f"layers.0.{n}": p.shape for n, p in block.named_parameters()},
+                            tp.rules_for(cfg, 1, TP_RANKS))
+        comm = LocalComm(1, TP_RANKS)
+        got = {"out": torch.cat([o.detach() for o in outs], 1),
+               "dx": torch.cat([t.grad for t in xs], 1)}
+        for n in names:
+            got[n] = tp.whole(comm, [dict(r.named_parameters())[n].grad for r in ranks],
+                              specs[f"layers.0.{n}"], grads=True)
+        mode = transformer.kv_mode(ranks[0])
+        log(f"[tp chatglm3-6b block] B {b} x S {s}, {TP_RANKS} LocalComm ranks on the card, "
+            f"H {cfg.n_heads // TP_RANKS} a rank, KV {mode} (2 KV heads: each rank holds "
+            f"{cfg.n_kv_heads * cfg.hd // TP_RANKS} of their {cfg.n_kv_heads * cfg.hd} "
+            f"columns, gathers them; rank m reads KV head "
+            f"{[r.tp.m * (cfg.n_heads // TP_RANKS) // (cfg.n_heads // cfg.n_kv_heads) for r in ranks]}), the "
+            f"sequence split in {TP_RANKS}; forward and backward {host * 1e3:.1f} ms host "
+            f"time, first call; K3 forward {launches[0]}, backward {launches[1]} launches")
+        self.tp_check("chatglm3-6b block", got, plain, ref)
+        del block, ranks, xs, outs, got, plain, ref
+
+    def tp_moe_moonshot(self) -> None:
+        cfg = get_config("moonshot-v1-16b-a3b")
+        mcfg = dataclasses.replace(cfg.moe, capacity_factor=2.0)
+        gen = torch.Generator(device=self.dev).manual_seed(12)
+        moe = moe_mod.MoE(cfg.d_model, cfg.d_ff, mcfg, cfg.mlp, device=self.dev)
+        moe.reset_parameters(gen)
+        moe.requires_grad_(False)
+        ranks = self.tp_ranks_of(moe, "layers.moe_layers.0.moe", cfg)
+        comm = LocalComm(1, TP_RANKS)
+        rank_of = [tp.Rank(comm, m, TP_RANKS) for m in range(TP_RANKS)]
+        b, s = 1, 2048
+        x = torch.randn(b, s, cfg.d_model, generator=gen, device=self.dev)
+        routes, orig = [], moe_mod.route
+        stats, ep = {}, moe_mod.moe_ffn_ep
+
+        def recording(router, tokens, c):
+            routes.append(orig(router, tokens, c))
+            return routes[-1]
+
+        def replayed(router, tokens, c):
+            return tuple(torch.cat(parts) for parts in zip(*routes[:TP_RANKS]))
+
+        with torch.no_grad():
+            moe_mod.route = recording
+            moe_mod.moe_ffn_ep = lambda *a, **k: ep(*a, **k, stats=stats)
+            try:
+                outs, auxs = moe_mod.moe_ranks(ranks, list(x.to(torch.bfloat16).chunk(
+                    TP_RANKS, 1)), rank_of, sp=True)
+                moe_mod.route = replayed
+                plain, _ = moe(x.to(torch.bfloat16))
+                ref, ref_aux = moe(x)
+            finally:
+                moe_mod.route, moe_mod.moe_ffn_ep = orig, ep
+        dropped = stats["dropped_send"] + stats["dropped_local"]
+        if dropped:
+            raise AssertionError(f"moonshot TP MoE at capacity factor 2.0 dropped {dropped}")
+        aux_rel = abs(float(auxs[0]) - float(ref_aux)) / abs(float(ref_aux))
+        log(f"[tp moonshot-v1-16b-a3b MoE] B {b} x S {s}, {TP_RANKS} LocalComm ranks: each "
+            f"rank routes its {s // TP_RANKS} positions to {mcfg.n_experts // TP_RANKS} "
+            f"experts a rank (no pair of {stats['pairs']} dropped), the shared experts over "
+            f"ff ({cfg.d_ff * mcfg.n_shared // TP_RANKS} columns a rank); aux {float(auxs[0])!r}"
+            f" vs float32 {float(ref_aux)!r} (rel {aux_rel:.2e})")
+        self.tp_check("moonshot-v1-16b-a3b MoE", {"out": torch.cat(outs, 1)},
+                      {"out": plain}, {"out": ref})
+        del moe, ranks, outs, plain, ref
+
+    def tp_prefill_moonshot(self) -> None:
+        """The slice's main path on the card (module docstring, 10(c))."""
+        cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2)
+        one = CausalLM(cfg, device=self.dev, seed=0).requires_grad_(False)
+        comm = LocalComm(1, TP_RANKS)
+        ranks = tp.split_ranks(one, comm)
+        gen = torch.Generator(device=self.dev).manual_seed(13)
+        s, max_len, steps = 2048, 2048 + 8, 4
+        toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=self.dev)
+        calls, attend, routes, orig = [], attn_mod._attend, [], moe_mod.route
+
+        def recording(q, k, v, acfg):
+            if not calls:
+                calls.append((q, k, v, dict(scale=acfg.scale, softcap=acfg.softcap,
+                                            causal=True, window=acfg.window,
+                                            prefix_len=acfg.prefix_len)))
+            return attend(q, k, v, acfg)
+
+        def routing(router, tokens, c):
+            routes.append(orig(router, tokens, c))
+            return routes[-1]
+
+        attn_mod._attend, moe_mod.route = recording, routing
+        k3.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            logits, caches = prefill_ranks(ranks, [toks] * TP_RANKS, max_len, torch.float32)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            launches = k3.flash_attention.launches
+            n_pre = len(routes)
+            got, fed, same = [logits[0]], [], all(torch.equal(t, logits[0]) for t in logits)
+            for i in range(steps):
+                fed.append(got[-1].argmax(-1))
+                step, caches = decode_ranks(ranks, [fed[-1]] * TP_RANKS, caches, s + i)
+                same = same and all(torch.equal(t, step[0]) for t in step)
+                got.append(step[0])
+        finally:
+            attn_mod._attend, moe_mod.route = attend, orig
+        if launches != TP_RANKS * cfg.n_layers:
+            raise AssertionError(f"TP prefill launched K3 {launches} times, expected "
+                                 f"{TP_RANKS * cfg.n_layers}")
+        # the unsharded model replays the ranks' routing: in prefill each
+        # rank routed its sequence shard, in decode every rank every token
+        groups = [routes[i:i + TP_RANKS] for i in range(0, len(routes), TP_RANKS)]
+        replay = [tuple(torch.cat(p) for p in zip(*g)) for g in groups[:n_pre // TP_RANKS]]
+        replay += [g[0] for g in groups[n_pre // TP_RANKS:]]
+
+        compute = one.dtype
+
+        def unsharded(dtype):
+            it = iter(replay)
+            moe_mod.route, one.dtype = (lambda router, tokens, c: next(it)), dtype
+            try:
+                out, cache = one.prefill(toks, max_len, torch.float32)
+                outs = [out]
+                for i in range(steps):
+                    out, cache = one.decode_step(fed[i], cache, s + i)
+                    outs.append(out)
+            finally:
+                moe_mod.route, one.dtype = orig, compute
+            return outs
+
+        plain, ref = unsharded(torch.bfloat16), unsharded(torch.float32)
+        names = ["prefill"] + [f"decode {i}" for i in range(steps)]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        tokens = []
+        for name, t, u, r in zip(names, got, plain, ref):
+            a, want = int(t.argmax()), int(r.argmax())
+            top2 = r.flatten().topk(2).values
+            margin = float(top2[0] - top2[1])
+            err_u = float((u - r).abs().max())
+            tokens.append(f"{name} {a} vs {want} (float32 top-2 margin {margin:.3e}, "
+                          f"unsharded bf16 max |err| {err_u:.3e})")
+            if a != want and margin > 2 * err_u:
+                raise AssertionError(f"TP {name}: greedy token {a}, float32's {want} by a "
+                                     f"margin {margin:.3e} > 2 x {err_u:.3e}")
+        log(f"[tp moonshot-v1-16b-a3b prefill] full width, {cfg.n_layers} layers (dense + "
+            f"MoE), {TP_RANKS} LocalComm ranks on the card: a {s}-token prefill "
+            f"{pre_ms:.1f} ms host time (first call), {steps} decode steps fed the TP "
+            f"greedy tokens; K3 launches {launches} ({cfg.n_layers} a rank); logits equal on "
+            f"every rank: {same}, finite: {finite}; greedy TP vs float32: "
+            + "; ".join(tokens))
+        if not (same and finite):
+            raise AssertionError("the TP serving logits are off")
+        self.tp_check("moonshot-v1-16b-a3b serving logits", dict(zip(names, got)),
+                      dict(zip(names, plain)), dict(zip(names, ref)))
+        q, k, v, kw = calls[0]
+        got = k3.flash_attention(q, k, v, **kw)
+        ref = k3.flash_attention_ref(q, k, v, **kw)
+        err, ratio = k3_error(q, k, v, got, ref, kw)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K3 at the TP shape: |err| {err:.3e}, {ratio:.3f} of the "
+                                 "bound")
+        lib_name, lib_fn = library_attention(q, k, v, scale=kw["scale"],
+                                             softcap=kw["softcap"], window=kw["window"],
+                                             prefix_len=kw["prefix_len"])
+        ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50,
+                     label="K3 moonshot TP rank S=2048 H=KVH=4 hd=128")
+        plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
+                           label="K3 plain")
+        lib_ms = time_ms(lib_fn, 50, label=lib_name)
+        hq, hd = q.shape[2], q.shape[3]
+        pos = torch.arange(q.shape[1], device=self.dev)
+        flops = 4.0 * float(k3.visible_mask(pos, pos).sum()) * hd * hq
+        bms, by = bound(2 * (q.numel() + k.numel()) * q.element_size(), flops, q.dtype)
+        blocks = q.shape[0] * hq * -(-q.shape[1] // 128)
+        self.kernels["flash_attention_tp"] = {
+            "name": "flash_attention_tp", "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash.py:70", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms, "model": cfg.name,
+            "launches_per_request": {"prefill": launches / TP_RANKS, "decode": 0}}
+        log(f"[K3 moonshot TP rank] {tuple(q.shape)} {q.dtype}: |err| {err:.3e} "
+            f"({ratio:.3f} of the bound), {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}, "
+            f"{bms / ms:.4f} of it), plain {plain_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms "
+            f"(K3 takes {ms / lib_ms:.2f}x); {blocks} blocks of 128 rows a launch on "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        del one, ranks, logits, caches, calls, got, ref, plain
+
+    def examples_main(self) -> None:
+        """The four example twins, each in its own process (module
+        docstring, 10(d))."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for script, args, limit in EXAMPLES:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" / script),
+                                   *args], env=env, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=limit)
+            lines = proc.stdout.strip().splitlines()
+            last = lines[-1] if lines else ""
+            nums = [float(v) for v in re.findall(
+                r"[-+]?(?:\d+\.\d*|\d+|nan|inf)(?:e[-+]?\d+)?", last.replace(",", ""))]
+            ok = proc.returncode == 0 and nums and all(np.isfinite(nums))
+            log(f"[example {script}] exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s; last line: {last}")
+            if not ok:
+                raise AssertionError(f"examples/torch/{script}: exit {proc.returncode}, "
+                                     f"last line {last!r}\n{proc.stderr[-2000:]}")
 
     def ssd_decay_range(self, model, cfg, batch) -> None:
         """The largest dt A of one forward over a training batch, over every
@@ -2729,6 +3058,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     smoke.ranked_train()
     log(f"[ranks] phase in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for part in (smoke.tp_block_chatglm3, smoke.tp_moe_moonshot, smoke.tp_prefill_moonshot):
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[tp] phase in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    smoke.examples_main()
+    log(f"[examples] phase in {time.perf_counter() - t1:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -1,10 +1,12 @@
 """Architecture registry.
 
-``get_config(name)`` returns the FULL published config; ``get_smoke(name)``
-a reduced same-family config for CPU smoke tests.  The ten config modules
-are pure data, copied from the reference's ``repro.configs``.  Its
-``input_specs``/``param_stats`` (``jax.eval_shape`` helpers of the dry-run)
-are not ported yet.
+``get_config(name)`` returns the FULL published config (what the card runs:
+one card, or a (data, model) mesh of ranks, ``repro_torch.dist.zero``);
+``get_smoke(name)`` a reduced same-family config for CPU tests.  The ten
+config modules are pure data, copied from the reference's
+``repro.configs``; the tests hold both equal field by field.  The
+reference's ``SHAPES``, ``cells``, ``input_specs`` and ``param_stats`` (the
+dry-run's helpers) wait for the dry-run's port (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 

@@ -200,6 +200,11 @@ class Tiling:
         denom = self.num_tiles * self.nodes_per_tile
         return self.n_fluid_nodes / denom if denom else 0.0
 
+    @property
+    def porosity(self) -> float:
+        """Non-solid nodes / bounding-box nodes (paper §4.6 definition)."""
+        return self.n_fluid_nodes / float(np.prod(self.orig_shape))
+
     def node_coords(self) -> np.ndarray:
         """Global (x, y, z) for every (tile, node) slot — (T, a^3, 3) int32."""
         a = self.a

@@ -66,6 +66,11 @@ def channel2d(nx: int, ny: int) -> np.ndarray:
     return g
 
 
+def open_channel3d(nx: int, ny: int, nz: int) -> np.ndarray:
+    """All-fluid box (periodic streaming handled by engine config)."""
+    return np.full((nx, ny, nz), FLUID, dtype=np.uint8)
+
+
 def random_spheres(
     box: int = 192,
     porosity: float = 0.5,

@@ -16,11 +16,14 @@ the rules carry them (``rules["_axes"]``), where the reference keeps a
 module-global.  A spec is a tuple with one entry per dimension: None, a
 mesh axis name, or a tuple of names, as the reference's ``PartitionSpec``.
 
-The port uses two things from the rules (``repro_torch.dist.zero``): which
-leaves are experts (split over ``"model"``, expert parallelism) and which
-dimension ZeRO-3 shards.  Tensor parallelism of heads, ff and vocab and
-the sequence-sharded activations are not ported: the specs name them, and
-nothing acts on them.
+The port acts on every rule (``repro_torch.dist.zero`` and
+``repro_torch.dist.tp``): a rank holds each parameter's shard under
+``param_specs`` over ``"model"`` (heads, ff, vocab and experts) and ZeRO-3
+shards the ``zero_dim`` over the dp axes; the batch goes over the dp
+axes; the stream between layers is split over the sequence where
+``seq_act`` is ``"model"``; the cache is placed by ``cache_specs``.
+:func:`shard` gives a rank's block of a tensor under the rules, where the
+reference constrains a global array's layout.
 """
 from __future__ import annotations
 
@@ -66,11 +69,24 @@ def make_rules_for(cfg, mesh, *, multi_pod: bool | None = None,
     }
 
 
-def shard(x, *names):
-    """The reference's activation annotation.  The identity: the port's
-    activations are rank-local (each rank holds its own rows of the batch,
-    whole), so there is nothing to constrain."""
-    del names
+def shard(x, *names, rules: dict | None = None, coords: dict | None = None):
+    """The reference's activation annotation, as a rank's part: with
+    ``rules`` and ``coords`` ({mesh axis: this rank's index on it}), the
+    block of ``x`` (one logical name, or None, a dim) that the rank holds
+    where the rules give a dim mesh axes that divide it (as ``fit``), and
+    ``x`` itself otherwise; without ``rules``, the identity (the
+    reference's outside ``use_rules``)."""
+    if rules is None or len(names) != x.dim():
+        return x
+    sizes, used = rules["_axes"], set()
+    for dim, name in enumerate(names):
+        axes = fit(rules.get(name) if name else None, x.shape[dim], sizes, used)
+        if axes is None:
+            continue
+        index = 0
+        for a in _axes_tuple(axes):
+            index = index * sizes[a] + coords[a]
+        x = x.chunk(math.prod(sizes[a] for a in _axes_tuple(axes)), dim)[index]
     return x
 
 
@@ -219,8 +235,7 @@ def zero_dim(spec: tuple, rules: dict) -> int | None:
 
 
 def is_expert(spec: tuple) -> bool:
-    """Whether a leaf's spec splits it over ``"model"`` on its expert dim
-    (the only ``"model"`` placement the port carries out)."""
+    """Whether a leaf's spec splits it over ``"model"`` on its expert dim."""
     return len(spec) >= 3 and spec[-3] == "model"
 
 

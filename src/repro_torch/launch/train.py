@@ -23,11 +23,13 @@ family the port serves trains (``--arch`` over ``configs.ARCHS``): a vlm's
 batches carry ``prefix_embeds``, a MoE's loss adds the router's aux.
 
 ``--data D --model M`` (default 1 x 1, one process) trains the dense and
-moe families across W = D x M ranks (``repro_torch.dist.zero``): ZeRO-3
-over all ranks, experts split over "model".  The launcher spawns the W
-processes itself (:func:`spawn_ranks`); rank r takes shard r of W of the
-global batch.  It raises when W exceeds the visible cards or does not
-divide ``--batch``.  Rank 0 prints, with tok/s over the global batch;
+moe families across W = D x M ranks (``repro_torch.dist.zero``): the
+global batch over "data" (the M ranks of data row d take shard d of D),
+ZeRO-3 over "data", and over "model" tensor parallelism of heads, ff and
+vocab, the stream split over the sequence between layers, and the MoE's
+experts split (``repro_torch.dist.tp``).  The launcher spawns the W
+processes itself (:func:`spawn_ranks`).  It raises when W exceeds the
+visible cards or D does not divide ``--batch``.  Rank 0 prints, with tok/s over the global batch;
 each rank's peak device memory is printed at the end.  Checkpoints are
 gathered leaf by leaf and written by rank 0, in the same layout: a run
 resumes on any mesh or on one card.  ``--layers`` cuts the depth.
@@ -140,7 +142,8 @@ def run(args, mesh=None, probe=None) -> dict:
     place = model.placement
     rank, ranks = (0, 1) if place is None else (place.rank, place.ranks)
     say = print if rank == 0 else (lambda *a, **k: None)
-    pipe = TokenPipeline(data_cfg, shard=rank, num_shards=ranks)
+    row, rows = (0, 1) if place is None else (place.data_rank, place.data)
+    pipe = TokenPipeline(data_cfg, shard=row, num_shards=rows)
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
     watchdog = StepWatchdog()
     preempt = PreemptionHandler()
@@ -278,9 +281,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--data", type=int, default=1, help="ranks over the data axis")
+    ap.add_argument("--data", type=int, default=1,
+                    help="ranks over the data axis (the batch, ZeRO-3)")
     ap.add_argument("--model", type=int, default=1,
-                    help="ranks over the model axis (expert parallelism)")
+                    help="ranks over the model axis (tensor, sequence and expert "
+                         "parallelism)")
     return ap.parse_args(argv)
 
 
@@ -290,8 +295,8 @@ def main(argv=None):
     world = args.data * args.model
     if world == 1:
         return run(args)["losses"]
-    if args.batch % world:
-        raise ValueError(f"--batch {args.batch} does not split over {world} ranks")
+    if args.batch % args.data:
+        raise ValueError(f"--batch {args.batch} does not split over {args.data} data ranks")
     return spawn_ranks(run, args.data, args.model, args.device, args)[0]["losses"]
 
 

@@ -18,6 +18,17 @@ masks and a KV cache (the reference's ``repro.models.attention``).
 
 The cache is updated in place (the reference returns a new one): prefill
 writes its k/v into the cache it is given and decode writes one slot.
+
+Every pass takes one entry per rank of a data row that this process runs
+(``repro_torch.dist.comm``): an unsharded model is one rank (``SOLO``),
+whose collectives are the identity.  Across M ranks of "model" each rank
+holds the columns of ``wq``/``wk``/``wv`` of its H/M heads and the rows
+of ``wo`` (``repro_torch.dist.tp``): the stream is gathered over the
+sequence before the projections and the output reduce-scattered back onto
+the rank's shard after ``wo`` (an all-reduce in decode).  Where the KV
+heads do not divide by M (``"cols"``), each rank's column slice of the k/v
+projections is gathered and it attends with the KV heads its own query
+heads read; the cache then holds every KV head on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dist.comm import SOLO, gather_seq, reduce_seq
 from ..kernels import flash
 from .layers import CastParams, apply_rope, empty_param, param_init, softcap
 
@@ -79,23 +91,6 @@ class Attention(CastParams):
                 self._parameters[name].zero_()
 
 
-def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, positions):
-    b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_fraction,
-                   cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_fraction,
-                   cfg.rope_theta)
-    return q, k, v.reshape(b, s, kvh, hd)
-
-
 def _mask_block(q_pos: torch.Tensor, k_pos: torch.Tensor, cfg: AttnConfig):
     """(S,) x (T,) positions -> (S, T) bool visibility: K3's predicate."""
     return flash.visible_mask(q_pos, k_pos, window=cfg.window,
@@ -131,14 +126,124 @@ def _attend(q, k, v, cfg: AttnConfig):
 
 
 # --------------------------------------------------------------------------
-# public entry points
+# over the ranks of a data row
 # --------------------------------------------------------------------------
+def _qkv(ps: list, hs: list, cfg: AttnConfig, positions, ranks: list, mode: str):
+    """q (B, S, H/M, hd) roped, and k, v as the cache holds them: (B, S,
+    KVH/M, hd) in ``"heads"`` mode, else all KVH heads (``"cols"``: each
+    rank's column slice of the projections, gathered over "model").  A
+    rank adds the bias columns of its own heads (the stored leaves are
+    whole)."""
+    b, s, _ = hs[0].shape
+    hd = cfg.head_dim
+    qs, ks, vs = [], [], []
+    for p, h, r in zip(ps, hs, ranks):
+        hl = cfg.n_heads // r.M
+        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        if cfg.qkv_bias:
+            cols = p["wk"].shape[1]
+            kv = slice(r.m * cols, (r.m + 1) * cols) if mode != "whole" else slice(None)
+            q = q + p["bq"][r.m * hl * hd:(r.m + 1) * hl * hd]
+            k = k + p["bk"][kv]
+            v = v + p["bv"][kv]
+        qs.append(apply_rope(q.reshape(b, s, hl, hd), positions, cfg.rope_fraction,
+                             cfg.rope_theta))
+        ks.append(k)
+        vs.append(v)
+    if mode == "cols":
+        comm = ranks[0].comm
+        ks, vs = comm.gather(ks, -1), comm.gather(vs, -1)
+    kvh = cfg.n_kv_heads // ranks[0].M if mode == "heads" else cfg.n_kv_heads
+    ks = [apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_fraction, cfg.rope_theta)
+          for k in ks]
+    return qs, ks, [v.reshape(b, s, kvh, hd) for v in vs]
+
+
+def kv_for_rank(k: torch.Tensor, cfg: AttnConfig, r, mode: str) -> torch.Tensor:
+    """The KV heads (dim 2 of ``k``) that rank ``r``'s query heads read, in
+    K3's grouping: a slice where the rank's heads read whole groups of
+    KV heads (rank r of starcoder2's 4 reads KV head r // 2), else each KV
+    head repeated once per query head."""
+    if mode == "heads":
+        return k
+    g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // r.M
+    first = r.m * hl
+    lo, hi = first // g, (first + hl - 1) // g + 1
+    n = hi - lo
+    if hl % n == 0 and all((first + j) // g - lo == j // (hl // n) for j in range(hl)):
+        return k[:, :, lo:hi].contiguous()
+    return k.repeat_interleave(g, dim=2)[:, :, first:first + hl].contiguous()
+
+
+def _out(ps: list, outs: list, ranks: list, sp: bool) -> list:
+    """The row-parallel ``wo`` over each rank's heads, reduced."""
+    return reduce_seq(ranks[0].comm, [o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
+                                      for p, o in zip(ps, outs)], sp)
+
+
+def attention_ranks(ps: list, hs: list, cfg: AttnConfig, positions, ranks: list,
+                    mode: str = "heads", sp: bool = False,
+                    caches: list | None = None) -> list:
+    """Self-attention (K3) over positions 0..S-1 for each rank's heads
+    (``ps``: its weights, ``hs``: its stream, its sequence shard with
+    ``sp``), reduced over "model"; with ``caches``, k/v written into slots
+    0..S-1 of each rank's (prefill)."""
+    qs, ks, vs = _qkv(ps, gather_seq(ranks[0].comm, hs, sp), cfg, positions, ranks, mode)
+    outs = []
+    for i, (q, k, v, r) in enumerate(zip(qs, ks, vs, ranks)):
+        if caches is not None:
+            s = k.shape[1]
+            caches[i]["k"][:, :s] = k
+            caches[i]["v"][:, :s] = v
+        outs.append(_attend(q, kv_for_rank(k, cfg, r, mode), kv_for_rank(v, cfg, r, mode),
+                            cfg))
+    return _out(ps, outs, ranks, sp)
+
+
+def attention_decode_ranks(ps: list, hs: list, caches: list, index: int, cfg: AttnConfig,
+                           ranks: list, mode: str = "heads", ring: bool = False) -> list:
+    """One-token decode at position ``index``, the stream whole on every
+    rank.  Each rank's cache k/v: (B, T, KVH/M or KVH, hd), written at slot
+    ``index``; with ``ring`` a local layer's ring (T = min(max_len,
+    window)): the new k/v go to slot index mod T, and slot i holds the
+    latest position <= index that maps to it (a negative one is not yet
+    written)."""
+    b = hs[0].shape[0]
+    dev = hs[0].device
+    positions = torch.full((b, 1), index, dtype=torch.int64, device=dev)
+    qs, ks, vs = _qkv(ps, hs, cfg, positions, ranks, mode)
+    outs = []
+    for q, k, v, cache, r in zip(qs, ks, vs, caches, ranks):
+        t = cache["k"].shape[1]
+        if ring:
+            slot = index % t
+            k_pos = index - (slot - torch.arange(t, device=dev)) % t
+            valid = k_pos >= 0
+        else:
+            if not 0 <= index < t:
+                raise ValueError(f"decode index {index} outside the cache of {t}")
+            slot, k_pos = index, torch.arange(t, device=dev)
+            valid = k_pos <= index
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        kk = kv_for_rank(cache["k"], cfg, r, mode).to(q.dtype)
+        vv = kv_for_rank(cache["v"], cfg, r, mode).to(q.dtype)
+        outs.append(_attend_dense(q, kk, vv, cfg, torch.full((1,), index, device=dev),
+                                  k_pos, valid=valid))
+    return _out(ps, outs, ranks, False)
+
+
+# --------------------------------------------------------------------------
+# one rank
+# --------------------------------------------------------------------------
+def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, positions):
+    (q,), (k,), (v,) = _qkv([p], [x], cfg, positions, [SOLO], "heads")
+    return q, k, v
+
+
 def attention(p: dict, x: torch.Tensor, cfg: AttnConfig, positions):
     """Full self-attention over x: (B, S, D), positions 0..S-1."""
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attend(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    return attention_ranks([p], [x], cfg, positions, [SOLO])[0]
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
@@ -152,28 +257,11 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig, positions,
                       cache: dict):
     """Prefill: full attention over x, and k/v written into slots 0..S-1 of
     ``cache`` (k/v (B, max_len, KVH, hd), in its own dtype)."""
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attend(q, k, v, cfg).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    return out @ p["wo"]
+    return attention_ranks([p], [x], cfg, positions, [SOLO], caches=[cache])[0]
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache: dict, index: int,
                      cfg: AttnConfig):
     """One-token decode at position ``index``.  x: (B, 1, D); cache k/v:
     (B, T, KVH, hd), written at slot ``index``."""
-    b = x.shape[0]
-    t = cache["k"].shape[1]
-    if not 0 <= index < t:
-        raise ValueError(f"decode index {index} outside the cache of {t}")
-    positions = torch.full((b, 1), index, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    cache["k"][:, index] = k[:, 0]
-    cache["v"][:, index] = v[:, 0]
-    k_pos = torch.arange(t, device=x.device)
-    q_pos = torch.full((1,), index, device=x.device)
-    out = _attend_dense(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), cfg,
-                        q_pos, k_pos, valid=k_pos <= index)
-    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return attention_decode_ranks([p], [x], [cache], index, cfg, [SOLO])[0]

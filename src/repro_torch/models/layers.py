@@ -1,8 +1,9 @@
 """Shared building blocks: norms, rotary, softcap, init.
 
 Plain functions on tensors, as in the reference's ``repro.models.layers``.
-The reference's ``shard`` is the identity on one device
-(``repro/dist/sharding.py:116-131``); the port has no counterpart.
+The reference's ``shard`` annotations are the identity on one device
+(``repro/dist/sharding.py:116-131``); across ranks the port's passes
+carry them out over the ranks of a data row (``repro_torch.dist.tp``).
 """
 from __future__ import annotations
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.comm import gather_seq, reduce_seq
 from .layers import CastParams, empty_param, param_init
 
 KINDS = ("swiglu", "geglu", "gelu")
@@ -23,6 +24,18 @@ def mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(kind)
     return h @ p["down"]
+
+
+def mlp_ranks(ps: list, hs: list, kind: str, ranks: list, sp: bool, split: bool) -> list:
+    """An MLP over each rank's stream (``ps``: its weights): with
+    ``split``, column-parallel ``up``/``gate`` and row-parallel ``down``
+    over "model", gathered before and reduced after (``repro_torch.dist.
+    comm``); else each rank on its own positions with whole weights."""
+    if not split:
+        return [mlp(p, h, kind) for p, h in zip(ps, hs)]
+    comm = ranks[0].comm
+    return reduce_seq(comm, [mlp(p, h, kind) for p, h in zip(ps, gather_seq(comm, hs, sp))],
+                      sp)
 
 
 class MLP(CastParams):

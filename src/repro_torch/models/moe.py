@@ -7,10 +7,13 @@ to a fixed-size (E, C, D) expert buffer, pairs past an expert's capacity C
 are dropped (GShard semantics), and the expert FFN is one batched product
 per weight.  Routing runs in float32.
 
-Two paths, as the reference's :func:`moe_ffn_auto` picks them:
+Two paths, as the reference's ``moe_ffn_auto`` picks them (here
+:func:`moe_ranks`):
 
 * :func:`moe_ffn`, every expert on this rank (one device, or a "model"
-  axis of 1);
+  axis of 1); where the stream is whole on every rank of M (decode), each
+  rank runs its E/M experts over every token and the parts are summed
+  over "model" (:func:`_routed`);
 * :func:`moe_ffn_ep`, expert parallelism: each of the M ranks of the
   "model" axis holds E/M experts; a rank routes its own tokens, packs them
   by destination rank into fixed-size send buffers, and an all-to-all
@@ -31,9 +34,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.comm import SOLO
 from .config import MoEConfig
 from .layers import CastParams, empty_param, param_init
-from .mlp import KINDS, mlp
+from .mlp import KINDS, mlp, mlp_ranks
 
 
 class Experts(CastParams):
@@ -78,9 +82,10 @@ class MoE(CastParams):
     routed experts (:class:`Experts`) and, with shared experts,
     ``shared_up``/``shared_gate`` (d, d_ff * n_shared) and ``shared_down``.
 
-    ``comm`` (None: one rank) is the "model" comm of a model built across
-    ranks (``repro_torch.dist.zero``); ``experts`` then holds the rank's
-    E/M experts where expert parallelism applies."""
+    ``comm`` (None: one rank) is the comm of a model built across ranks
+    (``repro_torch.dist.zero``), over which the aux loss is taken;
+    ``experts`` then holds the rank's E/M experts where expert parallelism
+    applies."""
 
     def __init__(self, d_model: int, d_ff: int, cfg: MoEConfig, kind: str, *,
                  device=None, dtype=torch.float32):
@@ -108,9 +113,11 @@ class MoE(CastParams):
             if p is not self.router:
                 param_init(p, generator)
 
-    def forward(self, x: torch.Tensor):
-        return moe_ffn_auto(self.weights(x.dtype, keep=("router",)), x, self.cfg,
-                            self.kind, comm=self.comm, ffn=self.experts)
+    def forward(self, x: torch.Tensor, rank=SOLO, sp: bool = False):
+        """This rank's MoE FFN over its stream (:func:`moe_ranks`): (out,
+        aux)."""
+        outs, auxs = moe_ranks([self], [x], [rank], sp)
+        return outs[0], auxs[0]
 
 
 def route(router: torch.Tensor, tokens: torch.Tensor, cfg: MoEConfig):
@@ -215,6 +222,37 @@ def _shared(p: dict, tokens: torch.Tensor, kind: str) -> torch.Tensor | None:
     return mlp(sp, tokens, kind)
 
 
+def _routed(p: dict, x: torch.Tensor, cfg: MoEConfig, kind: str, ffn=None, m: int = 0,
+            M: int = 1):
+    """The routed experts over x: (B, S, D), all of its tokens routed and
+    the experts ``m E/M .. (m+1) E/M - 1`` run on the pairs they keep
+    (all of them at M = 1; ``p``/``ffn`` hold those experts).  Returns
+    (their part of the output (N, D), probs, top_e): the sum of the M
+    parts is the routed output."""
+    b, s, d = x.shape
+    n, e, k = b * s, cfg.n_experts, cfg.top_k
+    tokens = x.reshape(n, d)
+    probs, top_w, top_e = route(p["router"], tokens, cfg)
+    cap = capacity(cfg, n)
+    # the dispatch sorts by expert, so the choices' order within a token
+    # does not matter to it; in ascending order, the combine sums them so
+    top_e_s, perm = top_e.sort(dim=-1)
+    top_w = top_w.gather(-1, perm)
+    order, dest, keep = dispatch(top_e_s.reshape(-1), e, cap)
+    e_loc = e // M
+    first = m * e_loc * cap
+    mine = keep & (dest >= first) & (dest < first + e_loc * cap)
+    ldest = torch.where(mine, dest - first, torch.full_like(dest, e_loc * cap))
+    buf = x.new_zeros(e_loc * cap + 1, d)
+    buf[ldest] = torch.where(mine[:, None], tokens[order // k], 0.0)   # others: zeros
+    hidden = buf[:-1].view(e_loc, cap, d)
+    out_buf = ffn(hidden) if ffn is not None else expert_ffn(p, hidden, kind)
+    out_buf = torch.cat([out_buf.reshape(e_loc * cap, d), x.new_zeros(1, d)])
+    contrib = x.new_empty(n * k, d)
+    contrib[order] = out_buf[ldest] * top_w.reshape(-1).to(x.dtype)[order][:, None]
+    return _combine(contrib, top_e_s), probs, top_e
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, kind: str, *, ffn=None,
             comm=None):
     """x: (B, S, D) -> (out, aux_loss).  ``p``: the router in the
@@ -224,26 +262,10 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, kind: str, *, ffn=None,
     With a ``comm`` (a rank of a model across ranks, every expert on it)
     the aux loss is taken over every rank's tokens."""
     b, s, d = x.shape
-    n, e, k = b * s, cfg.n_experts, cfg.top_k
-    tokens = x.reshape(n, d)
-    probs, top_w, top_e = route(p["router"], tokens, cfg)
+    routed, probs, top_e = _routed(p, x, cfg, kind, ffn)
     aux = (aux_loss(probs, top_e, cfg) if comm is None
            else mean_aux_loss([(probs, top_e)], cfg, comm)[0])
-    cap = capacity(cfg, n)
-    # the dispatch sorts by expert, so the choices' order within a token
-    # does not matter to it; in ascending order, the combine sums them so
-    top_e, perm = top_e.sort(dim=-1)
-    top_w = top_w.gather(-1, perm)
-    order, dest, keep = dispatch(top_e.reshape(-1), e, cap)
-    buf = x.new_zeros(e * cap + 1, d)
-    buf[dest] = torch.where(keep[:, None], tokens[order // k], 0.0)   # overflow: zeros
-    hidden = buf[:-1].view(e, cap, d)
-    out_buf = (ffn(hidden) if ffn is not None else expert_ffn(p, hidden, kind))
-    out_buf = torch.cat([out_buf.reshape(e * cap, d), x.new_zeros(1, d)])
-    contrib = x.new_empty(n * k, d)
-    contrib[order] = out_buf[dest] * top_w.reshape(-1).to(x.dtype)[order][:, None]
-    routed = _combine(contrib, top_e)
-    shared = _shared(p, tokens, kind)
+    shared = _shared(p, x.reshape(b * s, d), kind)
     if shared is not None:
         routed = routed + shared
     return routed.reshape(b, s, d), aux
@@ -323,13 +345,52 @@ def moe_ffn_ep(ps: list, xs: list, cfg: MoEConfig, kind: str, comm, *, ffns=None
     return outs, auxs
 
 
-def moe_ffn_auto(p: dict, x: torch.Tensor, cfg: MoEConfig, kind: str, *, comm=None,
-                 ffn=None):
-    """The reference's dispatcher: expert parallelism when the "model"
-    comm has M > 1 ranks over which the experts divide (``p``/``ffn``
-    then hold this rank's E/M experts), else :func:`moe_ffn`."""
-    if comm is not None and comm.model > 1 and cfg.n_experts % comm.model == 0:
-        outs, auxs = moe_ffn_ep([p], [x], cfg, kind, comm,
-                                ffns=None if ffn is None else [ffn])
-        return outs[0], auxs[0]
-    return moe_ffn(p, x, cfg, kind, ffn=ffn, comm=comm)
+def moe_ranks(moes: list, hs: list, ranks: list, sp: bool):
+    """The MoE FFN of each rank of a data row (``moes``: its :class:`MoE`,
+    ``hs``: its stream, its sequence shard with ``sp``; ``ranks``: its
+    ``repro_torch.dist.comm.Rank``).  Returns (outputs, aux losses).
+
+    The routed experts run by expert parallelism on the rank's sequence
+    shard (:func:`moe_ffn_ep`, the reference's ``(dp, sp)`` layout) where
+    the sequence splits over M > 1 ranks; else (one rank, or the stream
+    whole on every rank, as in decode) each rank routes every token, runs
+    its own experts and the parts are summed over "model" in one
+    all-reduce with the shared experts' parts.  The shared experts are
+    tensor-parallel over ff (their activation rule, ``mlp.py:32``): the
+    stored leaves are whole (no TP rule names them) and each rank reads its
+    ff columns.  The aux loss is taken over the ranks of ``moe.comm``
+    (None: this rank's tokens)."""
+    moe0, r0 = moes[0], ranks[0]
+    cfg, kind, comm, M = moe0.cfg, moe0.kind, r0.comm, r0.M
+    ps = [m.weights(h.dtype, keep=("router",)) for m, h in zip(moes, hs)]
+    routed = [{k: v for k, v in p.items() if not k.startswith("shared_")} for p in ps]
+    shared, split = [], False
+    if "shared_up" in ps[0]:
+        ff = ps[0]["shared_up"].shape[1]
+        split = M > 1 and ff % M == 0
+        for p, r in zip(ps, ranks):
+            cols = slice(r.m * ff // M, (r.m + 1) * ff // M) if split else slice(None)
+            w = {"up": p["shared_up"][:, cols], "down": p["shared_down"][cols]}
+            if "shared_gate" in p:
+                w["gate"] = p["shared_gate"][:, cols]
+            shared.append(w)
+    if sp and M > 1:
+        outs, auxs = moe_ffn_ep(routed, hs, cfg, kind, comm,
+                                ffns=[m.experts for m in moes])
+        if shared:
+            outs = [o + t for o, t in zip(outs, mlp_ranks(shared, hs, kind, ranks, sp,
+                                                          split))]
+        return outs, auxs
+    parts, routes = [], []
+    for i, (moe, p, h, r) in enumerate(zip(moes, routed, hs, ranks)):
+        part, probs, top_e = _routed(p, h, cfg, kind, moe.experts, r.m, M)
+        routes.append((probs, top_e))
+        if split:                  # the shared experts' part joins the one sum
+            part = part + mlp(shared[i], h.reshape(part.shape), kind)
+        parts.append(part.reshape(h.shape))
+    outs = comm.sum(parts)
+    if shared and not split:
+        outs = [o + mlp(w, h, kind) for o, w, h in zip(outs, shared, hs)]
+    auxs = (mean_aux_loss(routes, cfg, moe0.comm) if moe0.comm is not None
+            else [aux_loss(probs, top_e, cfg) for probs, top_e in routes])
+    return outs, auxs

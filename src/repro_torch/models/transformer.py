@@ -31,6 +31,14 @@ layer's new state into the cache it is given.  A vlm's prefix
 (``prefix_len``) attends bidirectionally in forward and prefill; decode
 is causal.  The audio family's stack is the dense one.
 
+The dense and moe passes (blocks, local/global pairs, the stacks) take
+one entry per rank of a data row that this process runs: an unsharded
+model is one rank (``repro_torch.dist.comm.SOLO``, its collectives the
+identity), a model across "model" ranks M of them (``repro_torch.dist.
+tp``), each block holding its rank's heads and ff and each stream its
+sequence shard where the sequence splits (train and prefill; whole in
+decode).  The ssm and hybrid families run as one rank.
+
 Where autograd records, ``stack_forward`` runs each scanned body of the
 reference under ``torch.utils.checkpoint`` (its ``jax.checkpoint``): a
 dense or MoE block, a local/global pair, an rwkv6 layer, and zamba2's
@@ -42,27 +50,29 @@ order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.comm import SOLO
 from .attention import (
     Attention,
     AttnConfig,
-    _attend_dense,
-    _project_qkv,
     attention,
     attention_decode,
+    attention_decode_ranks,
     attention_prefill,
+    attention_ranks,
     init_kv_cache,
 )
 from .config import ModelConfig
 from .layers import CastParams, empty_param, param_init, rms_norm
 from .mamba2 import Mamba2
-from .mlp import MLP
-from .moe import MoE
+from .mlp import MLP, mlp_ranks
+from .moe import MoE, moe_ranks
 from .rwkv6 import RWKVLayer
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
@@ -87,12 +97,28 @@ def check_supported(cfg: ModelConfig) -> None:
                          f"into groups of {cfg.attn_every}")
 
 
-def _remat(fn, *args):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` where autograd
+def _remat(fn, *args, **kw):
+    """``fn(*args, **kw)``, under ``torch.utils.checkpoint`` where autograd
     records."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def unsharded(*modules):
+    """Around a serving call: each FSDP unit among ``modules`` gathered
+    (its parameters are sharded over "data" between calls), then freed."""
+    from torch.distributed.fsdp import FSDPModule
+
+    units = [m for m in modules if isinstance(m, FSDPModule)]
+    for unit in units:
+        unit.unshard()
+    try:
+        yield
+    finally:
+        for unit in units:
+            unit.reshard()
 
 
 def attn_cfg_for(cfg: ModelConfig, window: int | None, prefix_len: int = 0) -> AttnConfig:
@@ -112,11 +138,14 @@ def attn_cfg_for(cfg: ModelConfig, window: int | None, prefix_len: int = 0) -> A
 
 
 class DenseBlock(nn.Module):
-    """Attention + MLP with pre-norms, and gemma2's optional post-norms."""
+    """Attention + MLP with pre-norms, and gemma2's optional post-norms.
+    ``tp`` is its rank (``repro_torch.dist.comm.Rank``; ``SOLO`` when
+    unsharded); its forward takes the rank's stream (``sp``: its sequence
+    shard)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, SOLO
         d = cfg.d_model
         kw = dict(device=device, dtype=dtype)
         self.attn = Attention(attn_cfg_for(cfg, None), **kw)
@@ -141,29 +170,8 @@ class DenseBlock(nn.Module):
     def _norm(self, name: str, x, plus_one: bool):
         return rms_norm(x, getattr(self, name), self.cfg.norm_eps, plus_one)
 
-    def _residual(self, x, attend):
-        """x + attention sublayer, then + MLP sublayer; ``attend`` maps the
-        normed input and the attention weights to the attention output."""
-        post = self.cfg.post_norms
-        a = attend(self._norm("norm_attn", x, post), self.attn.weights(x.dtype))
-        if post:
-            a = self._norm("post_attn", a, True)
-        x = x + a
-        m = self.mlp(self._norm("norm_mlp", x, post))
-        if post:
-            m = self._norm("post_mlp", m, True)
-        return x + m
-
-    def forward(self, x, acfg: AttnConfig, positions):
-        return self._residual(x, lambda h, p: attention(p, h, acfg, positions))
-
-    def prefill(self, x, acfg: AttnConfig, positions, cache: dict):
-        return self._residual(
-            x, lambda h, p: attention_prefill(p, h, acfg, positions, cache))
-
-    def decode(self, x, cache: dict, index: int, acfg: AttnConfig):
-        return self._residual(
-            x, lambda h, p: attention_decode(p, h, cache, index, acfg))
+    def forward(self, x, acfg: AttnConfig, positions, sp: bool = False):
+        return body_forward([self], [x], acfg, positions, sp=sp)[0]
 
 
 class Pair(nn.ModuleDict):
@@ -173,36 +181,13 @@ class Pair(nn.ModuleDict):
         super().__init__({name: DenseBlock(cfg, device=device, dtype=dtype)
                           for name in ("local", "global")})
 
-    def forward(self, x, a_loc: AttnConfig, a_glo: AttnConfig, positions):
-        x = self["local"](x, a_loc, positions)
-        return self["global"](x, a_glo, positions)
+    def forward(self, x, a_loc: AttnConfig, a_glo: AttnConfig, positions,
+                sp: bool = False):
+        return body_forward([self], [x], a_loc, a_glo, positions, sp=sp)[0]
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for block in self.values():
             block.reset_parameters(generator)
-
-
-def _decode_ring(block: DenseBlock, x, cache: dict, index: int, acfg: AttnConfig):
-    """One-token decode of a local block against its ring cache (k/v (B,
-    W, KVH, hd), W = min(max_len, window)): the new k/v go to slot index
-    mod W, and slot i holds the latest position <= index that maps to it
-    (a negative one is not yet written)."""
-    def attend(h, p):
-        b = h.shape[0]
-        tlen = cache["k"].shape[1]
-        positions = torch.full((b, 1), index, dtype=torch.int64, device=h.device)
-        q, k, v = _project_qkv(p, h, acfg, positions)
-        slot = index % tlen
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        age = (slot - torch.arange(tlen, device=h.device)) % tlen   # 0 = newest
-        k_pos = index - age
-        q_pos = torch.full((1,), index, device=h.device)
-        out = _attend_dense(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), acfg,
-                            q_pos, k_pos, valid=k_pos >= 0)
-        return out.reshape(b, 1, acfg.n_heads * acfg.head_dim) @ p["wo"]
-
-    return block._residual(x, attend)
 
 
 def _ring_from_full(cache: dict, s: int, local_len: int) -> dict:
@@ -223,11 +208,12 @@ def _ring_from_full(cache: dict, s: int, local_len: int) -> dict:
 
 class MoEBlock(nn.Module):
     """Attention + the MoE FFN, with pre-norms (the reference's
-    ``moe_block``); its forward also returns the layer's aux loss."""
+    ``moe_block``); its forward also returns the layer's aux loss.  ``tp``
+    as :class:`DenseBlock`'s."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, SOLO
         d = cfg.d_model
         kw = dict(device=device, dtype=dtype)
         self.attn = Attention(attn_cfg_for(cfg, None), **kw)
@@ -242,22 +228,123 @@ class MoEBlock(nn.Module):
         self.norm_attn.fill_(1.0)
         self.norm_mlp.fill_(1.0)
 
-    def _residual(self, x, attend):
-        eps = self.cfg.norm_eps
-        x = x + attend(rms_norm(x, self.norm_attn, eps), self.attn.weights(x.dtype))
-        m, aux = self.moe(rms_norm(x, self.norm_mlp, eps))
-        return x + m, aux
+    def forward(self, x, acfg: AttnConfig, positions, sp: bool = False):
+        outs, auxs = body_forward([self], [x], acfg, positions, sp=sp)
+        return outs[0], auxs[0]
 
-    def forward(self, x, acfg: AttnConfig, positions):
-        return self._residual(x, lambda h, p: attention(p, h, acfg, positions))
 
-    def prefill(self, x, acfg: AttnConfig, positions, cache: dict):
-        return self._residual(
-            x, lambda h, p: attention_prefill(p, h, acfg, positions, cache))[0]
+# --------------------------------------------------------------------------
+# the blocks of the ranks of a data row
+# --------------------------------------------------------------------------
+def kv_mode(block) -> str:
+    """How a block's rank holds K and V: ``"heads"`` (its own KV heads;
+    all of them at M = 1), ``"cols"`` (a column slice of the projections,
+    all-gathered over "model") or ``"whole"`` (the projections unsplit)."""
+    M = block.tp.M
+    if M == 1:
+        return "heads"
+    if "wk" not in getattr(block.attn, "tp_split", ()):
+        return "whole"
+    return "heads" if block.cfg.n_kv_heads % M == 0 else "cols"
 
-    def decode(self, x, cache: dict, index: int, acfg: AttnConfig):
-        return self._residual(
-            x, lambda h, p: attention_decode(p, h, cache, index, acfg))[0]
+
+def kv_heads(block) -> int:
+    """The KV heads a block's rank caches (``cache_specs``)."""
+    n = block.cfg.n_kv_heads
+    return n // block.tp.M if kv_mode(block) == "heads" else n
+
+
+def _weights(blocks: list, xs: list) -> list:
+    return [b.attn.weights(x.dtype) for b, x in zip(blocks, xs)]
+
+
+def dense_block(blocks: list, xs: list, attend, sp: bool) -> list:
+    """A dense block of each rank over its stream: x + the attention
+    sublayer, then + the MLP sublayer; ``attend(hs, ps)`` maps the normed
+    streams and the attention weights to the attention output, reduced."""
+    b0 = blocks[0]
+    post = b0.cfg.post_norms
+    a = attend([b._norm("norm_attn", x, post) for b, x in zip(blocks, xs)],
+               _weights(blocks, xs))
+    if post:
+        a = [b._norm("post_attn", t, True) for b, t in zip(blocks, a)]
+    xs = [x + t for x, t in zip(xs, a)]
+    hs = [b._norm("norm_mlp", x, post) for b, x in zip(blocks, xs)]
+    split = "up" in getattr(b0.mlp, "tp_split", ())
+    m = mlp_ranks([b.mlp.weights(h.dtype) for b, h in zip(blocks, hs)], hs, b0.mlp.kind,
+                  [b.tp for b in blocks], sp, split)
+    if post:
+        m = [b._norm("post_mlp", t, True) for b, t in zip(blocks, m)]
+    return [x + t for x, t in zip(xs, m)]
+
+
+def moe_block(blocks: list, xs: list, attend, sp: bool):
+    """A MoE block of each rank (``attend`` as :func:`dense_block`'s);
+    returns (streams, aux losses)."""
+    eps = blocks[0].cfg.norm_eps
+    hs = [rms_norm(x, b.norm_attn, eps) for b, x in zip(blocks, xs)]
+    xs = [x + t for x, t in zip(xs, attend(hs, _weights(blocks, xs)))]
+    hs = [rms_norm(x, b.norm_mlp, eps) for b, x in zip(blocks, xs)]
+    if len(blocks) == 1:                   # one rank: through the module
+        out, aux = blocks[0].moe(hs[0], blocks[0].tp, sp)
+        outs, auxs = [out], [aux]
+    else:
+        outs, auxs = moe_ranks([b.moe for b in blocks], hs, [b.tp for b in blocks], sp)
+    return [x + o for x, o in zip(xs, outs)], auxs
+
+
+def _block(blocks: list, xs: list, attend, sp: bool):
+    if isinstance(blocks[0], MoEBlock):
+        return moe_block(blocks, xs, attend, sp)
+    return dense_block(blocks, xs, attend, sp)
+
+
+def _attend_fn(blocks: list, acfg: AttnConfig, positions, sp: bool, caches=None):
+    """Self-attention (K3) for ``blocks``; with ``caches`` (one a rank),
+    prefill's k/v written into them."""
+    ranks, mode = [b.tp for b in blocks], kv_mode(blocks[0])
+    return lambda hs, ps: attention_ranks(ps, hs, acfg, positions, ranks, mode, sp, caches)
+
+
+def _decode_fn(blocks: list, caches: list, index: int, acfg: AttnConfig, ring=False):
+    """One-token decode attention for ``blocks`` over each rank's cache (a
+    local layer's ring with ``ring``)."""
+    ranks, mode = [b.tp for b in blocks], kv_mode(blocks[0])
+    return lambda hs, ps: attention_decode_ranks(ps, hs, caches, index, acfg, ranks, mode,
+                                                 ring)
+
+
+def body_forward(bodies: list, xs: list, *args, sp: bool):
+    """One scanned body of each rank (a dense or MoE block: ``args`` =
+    (acfg, positions); a gemma2 pair: (a_loc, a_glo, positions)).  A MoE
+    block returns (streams, aux losses)."""
+    if isinstance(bodies[0], Pair):
+        a_loc, a_glo, positions = args
+        for part, acfg in (("local", a_loc), ("global", a_glo)):
+            blocks = [p[part] for p in bodies]
+            xs = dense_block(blocks, xs, _attend_fn(blocks, acfg, positions, sp), sp)
+        return xs
+    acfg, positions = args
+    return _block(bodies, xs, _attend_fn(bodies, acfg, positions, sp), sp)
+
+
+def _run_body(bodies: list, xs: list, *args, sp: bool):
+    """A body of each rank, checkpointed where autograd records: one
+    rank's through the module (an FSDP unit gathers its parameters around
+    the call), several ranks' in one call."""
+    if len(bodies) == 1:
+        out = _remat(bodies[0], xs[0], *args, sp=sp)
+        return ([out[0]], [out[1]]) if isinstance(out, tuple) else [out]
+    return _remat(body_forward, bodies, xs, *args, sp=sp)
+
+
+def _block_groups(layers: list) -> list:
+    """(its cache's key, each rank's list of blocks) of each group of a
+    dense or moe stack (``layers``: one a rank), in order."""
+    if isinstance(layers[0], nn.ModuleDict):
+        return [(name, [group[name] for group in layers])
+                for name in ("dense_layers", "moe_layers") if name in layers[0]]
+    return [("layers", layers)]
 
 
 class MambaLayer(nn.Module):
@@ -404,10 +491,6 @@ def _group_layers(cfg: ModelConfig, g: int) -> range:
     return range(g * cfg.attn_every, (g + 1) * cfg.attn_every)
 
 
-def _dense_layers(layers: nn.ModuleDict):
-    return layers["dense_layers"] if "dense_layers" in layers else ()
-
-
 def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
     return (attn_cfg_for(cfg, cfg.local_window, prefix_len),
             attn_cfg_for(cfg, None, prefix_len))
@@ -422,34 +505,39 @@ def _hybrid_group(layers: nn.ModuleDict, cfg: ModelConfig, g: int, x, x0,
     return layers["shared"](x, x0, layers["lora"][g], acfg, positions)
 
 
-def stack_forward(layers: nn.Module, x, cfg: ModelConfig, positions,
-                  prefix_len: int = 0):
-    """Run the full layer stack, each body checkpointed (the module
-    docstring).  x: (B, S, D).  Returns (x, aux_loss): the sum of the MoE
-    layers' aux losses, else 0."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def stack_forward(layers: list, xs: list, cfg: ModelConfig, positions,
+                  prefix_len: int = 0, sp: bool = False):
+    """Run the full layer stack of each rank, each body checkpointed (the
+    module docstring).  ``layers``/``xs``: one a rank (one rank outside
+    the dense and moe families), xs (B, S, D), or (B, S/M, D) with ``sp``;
+    ``positions``: the whole sequence's.  Returns (xs, auxs): each rank's
+    stream and the sum of its MoE layers' aux losses, else 0."""
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     acfg = attn_cfg_for(cfg, None, prefix_len)
-    if cfg.family == "moe":
-        for block in _dense_layers(layers):
-            x = _remat(block, x, acfg, positions)
-        for block in layers["moe_layers"]:
-            x, a = _remat(block, x, acfg, positions)
-            aux = aux + a
-    elif cfg.family == "ssm":
-        for layer in layers:
-            x, _ = _remat(layer, x)
-    elif cfg.family == "hybrid":
-        x0 = x
-        for g in range(_groups(cfg)):
-            x = _remat(_hybrid_group, layers, cfg, g, x, x0, acfg, positions)
-    elif cfg.layer_pattern == "local_global":
+    if cfg.family in ("ssm", "hybrid"):
+        (layers,), (x,) = layers, xs
+        if cfg.family == "ssm":
+            for layer in layers:
+                x, _ = _remat(layer, x)
+        else:
+            x0 = x
+            for g in range(_groups(cfg)):
+                x = _remat(_hybrid_group, layers, cfg, g, x, x0, acfg, positions)
+        return [x], auxs
+    if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
-        for pair in layers:
-            x = _remat(pair, x, a_loc, a_glo, positions)
-    else:
-        for block in layers:
-            x = _remat(block, x, acfg, positions)
-    return x, aux
+        for i in range(len(layers[0])):
+            xs = _run_body([lay[i] for lay in layers], xs, a_loc, a_glo, positions, sp=sp)
+        return xs, auxs
+    for name, bodies in _block_groups(layers):
+        for i in range(len(bodies[0])):
+            out = _run_body([b[i] for b in bodies], xs, acfg, positions, sp=sp)
+            if name == "moe_layers":
+                xs, a = out
+                auxs = [t + u for t, u in zip(auxs, a)]
+            else:
+                xs = out
+    return xs, auxs
 
 
 def _local_len(cfg: ModelConfig, max_len: int) -> int:
@@ -491,6 +579,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return {"layers": kv(cfg.n_layers, max_len)}
 
 
+def rank_cache(layers: nn.Module, cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """A rank's decode cache: :func:`init_cache` with the KV heads its
+    blocks hold (:func:`kv_heads`; all of them at M = 1)."""
+    block = next((m for m in layers.modules() if isinstance(m, (DenseBlock, MoEBlock))),
+                 None)
+    if block is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv_heads(block))
+    return init_cache(cfg, batch, max_len, dtype, device)
+
+
 def _layer_cache(group: dict, i: int) -> dict:
     """Layer ``i``'s entries (views) of one stacked group of the cache."""
     return {name: leaf[i] for name, leaf in group.items()}
@@ -501,20 +600,25 @@ def _stacked(states: list[dict]) -> dict:
     return {name: torch.stack([st[name] for st in states]) for name in states[0]}
 
 
-def stack_prefill(layers: nn.Module, x, cfg: ModelConfig, positions,
-                  max_len: int, cache_dtype=torch.bfloat16, prefix_len: int = 0):
-    """Forward over the prompt, returning (x, decode cache at ``max_len``):
-    k/v in ``cache_dtype``; rwkv6's and Mamba2's states as their layers
+def stack_prefill(layers: list, xs: list, cfg: ModelConfig, positions,
+                  max_len: int, cache_dtype=torch.bfloat16, prefix_len: int = 0,
+                  sp: bool = False):
+    """Forward over the prompt of each rank (``layers``/``xs``/``sp`` as
+    :func:`stack_forward`'s), returning (xs, each rank's decode cache at
+    ``max_len``): k/v in ``cache_dtype``, the rank's KV heads
+    (:func:`rank_cache`); rwkv6's and Mamba2's states as their layers
     leave them (float32 recurrent states, the token-shift carries and the
     conv inputs in the compute dtype), as the reference's prefill does."""
     acfg = attn_cfg_for(cfg, None, prefix_len)
     if cfg.family == "ssm":
+        (layers,), (x,) = layers, xs
         states = []
         for layer in layers:
             x, st = layer(x)
             states.append(st)
-        return x, _stacked(states)
+        return [x], [_stacked(states)]
     if cfg.family == "hybrid":
+        (layers,), (x,) = layers, xs
         x0, states = x, []
         cache = {"attn_kv": init_cache(cfg, x.shape[0], max_len, cache_dtype,
                                        x.device)["attn_kv"]}
@@ -524,30 +628,37 @@ def stack_prefill(layers: nn.Module, x, cfg: ModelConfig, positions,
                 states.append(st)
             x = layers["shared"].prefill(x, x0, lora, acfg, positions,
                                          _layer_cache(cache["attn_kv"], g))
-        return x, {**_stacked(states), **cache}
-    cache = init_cache(cfg, x.shape[0], max_len, cache_dtype, x.device)
-    if cfg.family == "moe":
-        for name, group in (("dense_layers", _dense_layers(layers)),
-                            ("moe_layers", layers["moe_layers"])):
-            for i, block in enumerate(group):
-                x = block.prefill(x, acfg, positions, _layer_cache(cache[name], i))
-        return x, cache
+        return [x], [{**_stacked(states), **cache}]
+    b, s = xs[0].shape[0], positions.shape[1]
+    caches = [rank_cache(lay, cfg, b, max_len, cache_dtype, x.device)
+              for lay, x in zip(layers, xs)]
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
-        b, s = x.shape[:2]
-        for i, pair in enumerate(layers):
-            # the local layer's k/v at full length, folded into its ring
-            full = init_kv_cache(b, s, a_loc, cache_dtype, x.device)
-            x = pair["local"].prefill(x, a_loc, positions, full)
-            ring = _ring_from_full(full, s, _local_len(cfg, max_len))
-            for name in ("k", "v"):
-                cache["local"][name][i] = ring[name]
-            x = pair["global"].prefill(x, a_glo, positions,
-                                       _layer_cache(cache["global"], i))
-        return x, cache
-    for i, block in enumerate(layers):
-        x = block.prefill(x, acfg, positions, _layer_cache(cache["layers"], i))
-    return x, cache
+        for i in range(len(layers[0])):
+            pairs = [lay[i] for lay in layers]
+            with unsharded(*pairs):
+                # the local layer's k/v at full length, folded into its ring
+                locs = [p["local"] for p in pairs]
+                fulls = [init_kv_cache(b, s, dataclasses.replace(
+                    a_loc, n_kv_heads=c["local"]["k"].shape[3]), cache_dtype, x.device)
+                    for c, x in zip(caches, xs)]
+                xs = dense_block(locs, xs, _attend_fn(locs, a_loc, positions, sp, fulls), sp)
+                for c, full in zip(caches, fulls):
+                    ring = _ring_from_full(full, s, _local_len(cfg, max_len))
+                    for name in ("k", "v"):
+                        c["local"][name][i] = ring[name]
+                glos = [p["global"] for p in pairs]
+                views = [_layer_cache(c["global"], i) for c in caches]
+                xs = dense_block(glos, xs, _attend_fn(glos, a_glo, positions, sp, views), sp)
+        return xs, caches
+    for name, bodies in _block_groups(layers):
+        for i in range(len(bodies[0])):
+            blocks = [bl[i] for bl in bodies]
+            views = [_layer_cache(c[name], i) for c in caches]
+            with unsharded(*blocks):
+                out = _block(blocks, xs, _attend_fn(blocks, acfg, positions, sp, views), sp)
+            xs = out[0] if isinstance(blocks[0], MoEBlock) else out
+    return xs, caches
 
 
 def _write(cache: dict, i: int, state: dict) -> None:
@@ -556,24 +667,20 @@ def _write(cache: dict, i: int, state: dict) -> None:
         cache[name][i] = value
 
 
-def stack_decode(layers: nn.Module, x, cache: dict, index: int,
-                 cfg: ModelConfig):
-    """One-token decode through the stack.  x: (B, 1, D); ``cache`` is
-    updated in place and returned.  The recurrent states ignore
-    ``index``."""
+def stack_decode(layers: list, xs: list, caches: list, index: int, cfg: ModelConfig):
+    """One-token decode through each rank's stack (``layers``/``xs``/
+    ``caches``: one a rank), the stream whole on every rank.  xs: (B, 1,
+    D); the caches are updated in place and returned.  The recurrent
+    states ignore ``index``."""
     acfg = attn_cfg_for(cfg, None)
-    if cfg.family == "moe":
-        for name, group in (("dense_layers", _dense_layers(layers)),
-                            ("moe_layers", layers["moe_layers"])):
-            for i, block in enumerate(group):
-                x = block.decode(x, _layer_cache(cache[name], i), index, acfg)
-        return x, cache
     if cfg.family == "ssm":
+        (layers,), (x,), (cache,) = layers, xs, caches
         for i, layer in enumerate(layers):
             x, st = layer(x, _layer_cache(cache, i))
             _write(cache, i, st)
-        return x, cache
+        return [x], caches
     if cfg.family == "hybrid":
+        (layers,), (x,), (cache,) = layers, xs, caches
         x0 = x
         for g, lora in enumerate(layers["lora"]):
             for i in _group_layers(cfg, g):
@@ -582,15 +689,23 @@ def stack_decode(layers: nn.Module, x, cache: dict, index: int,
                 _write(cache, i, st)
             x = layers["shared"].decode(x, x0, lora, _layer_cache(cache["attn_kv"], g),
                                         index, acfg)
-        return x, cache
+        return [x], caches
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg)
-        for i, pair in enumerate(layers):
-            x = _decode_ring(pair["local"], x, _layer_cache(cache["local"], i),
-                             index, a_loc)
-            x = pair["global"].decode(x, _layer_cache(cache["global"], i), index,
-                                      a_glo)
-        return x, cache
-    for i, block in enumerate(layers):
-        x = block.decode(x, _layer_cache(cache["layers"], i), index, acfg)
-    return x, cache
+        for i in range(len(layers[0])):
+            pairs = [lay[i] for lay in layers]
+            with unsharded(*pairs):
+                for part, a, ring in (("local", a_loc, True), ("global", a_glo, False)):
+                    blocks = [p[part] for p in pairs]
+                    views = [_layer_cache(c[part], i) for c in caches]
+                    xs = dense_block(blocks, xs, _decode_fn(blocks, views, index, a, ring),
+                                     False)
+        return xs, caches
+    for name, bodies in _block_groups(layers):
+        for i in range(len(bodies[0])):
+            blocks = [bl[i] for bl in bodies]
+            views = [_layer_cache(c[name], i) for c in caches]
+            with unsharded(*blocks):
+                out = _block(blocks, xs, _decode_fn(blocks, views, index, acfg), False)
+            xs = out[0] if isinstance(blocks[0], MoEBlock) else out
+    return xs, caches

@@ -67,10 +67,14 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def global_norm(tree: dict[str, torch.Tensor], group=None) -> torch.Tensor:
+def global_norm(tree: dict[str, torch.Tensor], group=None,
+                replicas: dict[str, int] | None = None) -> torch.Tensor:
     """The 2-norm over every leaf; with ``group``, over the leaves' local
-    shards on every rank of it (each element held by one rank)."""
-    total = sum(torch.sum(torch.square(_local(x).float())) for x in tree.values())
+    shards on every rank of it, each element counted once: ``replicas``
+    gives how many ranks hold each element of a leaf (default 1)."""
+    reps = replicas or {}
+    total = sum(torch.sum(torch.square(_local(x).float())) / reps.get(n, 1)
+                for n, x in tree.items())
     if group is not None:
         dist.all_reduce(total, group=group)
     return torch.sqrt(total)
@@ -107,11 +111,13 @@ def decays(name: str, ndim: int) -> bool:
 
 @torch.no_grad()
 def apply_updates(params: dict[str, torch.Tensor], opt_state: dict,
-                  grads: dict[str, torch.Tensor], cfg: AdamWConfig, step, group=None):
+                  grads: dict[str, torch.Tensor], cfg: AdamWConfig, step, group=None,
+                  replicas: dict[str, int] | None = None):
     """One AdamW step, in place on ``params`` and the state's m and v (their
-    local shards, where sharded; ``group`` as for :func:`global_norm`), one
-    leaf at a time.  Returns (params, opt_state, {"grad_norm", "lr"})."""
-    gn = global_norm(grads, group)
+    local shards, where sharded; ``group`` and ``replicas`` as for
+    :func:`global_norm`), one leaf at a time.  Returns (params, opt_state,
+    {"grad_norm", "lr"})."""
+    gn = global_norm(grads, group, replicas)
     scale = (torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
              if cfg.clip_norm is not None else None)
     lr_t = schedule_lr(cfg, step)

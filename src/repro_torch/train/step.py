@@ -13,11 +13,14 @@ audio) and, for a vlm, ``prefix_embeds``, as numpy arrays or tensors.
 The metrics are 0-dim tensors: ``loss``, ``ce``, ``aux``, ``grad_norm``
 and ``lr``.
 
-A model across ranks (``repro_torch.dist.zero.ranked_lm``) takes the
-rank's rows of the global batch (``data.tokens.TokenPipeline(shard=rank,
-num_shards=W)``); its gradients are FSDP's means over the W ranks, each rank
-updates its own shards, and ``loss``, ``ce`` and ``aux`` are means over the
-ranks (the global batch's, where every rank has as many labels).
+A model across ranks (``repro_torch.dist.zero.ranked_lm``) takes its
+data row's rows of the global batch (``data.tokens.TokenPipeline(shard=d,
+num_shards=D)`` for data coordinate d of D); its gradients are the global
+batch's mean (FSDP's over "data", then ``Placement.sync_grads``), each rank
+updates its own shards, the gradient norm counts each element once (a
+leaf held whole by several ranks is divided by their count), and
+``loss``, ``ce`` and ``aux`` are means over the ranks (the global batch's,
+where every row has as many labels).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
             f"could act) nor microbatches ({microbatches}: each backward would "
             "reduce-scatter its own gradients; not ported)")
     group = None if place is None else place.world.get_group()
+    replicas = None if place is None else {n: place.replicas(n) for n in params}
 
     def grads_of(batch):
         """Backward of one batch: (loss, metrics, {name: grad})."""
@@ -56,6 +60,8 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
             p.grad = None
         loss, metrics = _loss(model, batch)
         loss.backward()
+        if place is not None:
+            place.sync_grads(params)
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None
@@ -89,7 +95,7 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
         if compressor is not None:
             grads = compressor.roundtrip(grads)
         _, opt_state, opt_metrics = apply_updates(params, opt_state, grads, opt_cfg, step,
-                                                  group)
+                                                  group, replicas)
         return opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step

@@ -74,11 +74,13 @@ def trajectory(model, cfg, out: Path, ckpt: str, resume: str | None = None,
     from repro_torch.optim.adamw import init_state
 
     place = model.placement
-    pipe = pipeline(cfg, rank, ranks)
+    pipe = pipeline(cfg, *_row(model))
     batches = [pipe.next() for _ in range(STEPS + 1)]
     b0 = batches[0]
     loss, _ = model.loss(torch.as_tensor(b0["tokens"]).long(), torch.as_tensor(b0["labels"]))
     loss.backward()
+    if place is not None:
+        place.sync_grads(dict(model.named_parameters()))
     loss = loss.detach()
     grads = {}
     for name, p in model.named_parameters():
@@ -107,6 +109,12 @@ def trajectory(model, cfg, out: Path, ckpt: str, resume: str | None = None,
     return res if rank == 0 else None
 
 
+def _row(model):
+    """(data row, data rows) of a model's rank: the batch goes over "data"."""
+    place = model.placement
+    return (0, 1) if place is None else (place.data_rank, place.data)
+
+
 def _steps(model, opt, batches, first, last):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import make_train_step
@@ -131,7 +139,7 @@ def resumed_step(model, cfg, ckpt: Path, rank: int = 0, ranks: int = 1):
     opt = init_state(dict(model.named_parameters()))
     extra = restore_checkpoint(CheckpointStore(str(ckpt)), STEPS, model, opt)
     assert extra["step"] == STEPS and int(opt["count"]) == STEPS
-    pipe = pipeline(cfg, rank, ranks)
+    pipe = pipeline(cfg, *_row(model))
     batches = [pipe.next() for _ in range(STEPS + 1)]
     _, metrics = _steps(model, opt, batches, STEPS, STEPS + 1)
     return metrics, lm_params_to_reference(model)

@@ -744,7 +744,7 @@ from test_torch_cuda import _smoke_step
 from repro_torch.launch.mesh import make_lm_mesh
 dist.init_process_group("nccl", init_method=addr, rank=rank, world_size=world,
                         timeout=datetime.timedelta(seconds=300))
-res = _smoke_step(make_lm_mesh(2, 2), rank, world)
+res = _smoke_step(make_lm_mesh(2, 2))
 if rank == 0:
     torch.save(res, f"{out}/ranks.pt")
 dist.destroy_process_group()
@@ -752,7 +752,7 @@ print("RANK_OK")
 """
 
 
-def _smoke_step(mesh=None, rank=0, ranks=1):
+def _smoke_step(mesh=None):
     """One train step of deepseek's smoke (float32, capacity factor 8: no
     pair dropped) on 4 x 32 tokens from seed 0: metrics and the parameters
     after it, whole (across ranks: gathered, on rank 0)."""
@@ -772,17 +772,20 @@ def _smoke_step(mesh=None, rank=0, ranks=1):
                               moe=dataclasses.replace(base.moe, capacity_factor=8.0))
     model = CausalLM(cfg, device="cuda", seed=0) if mesh is None else ranked_lm(cfg, mesh)
     step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+    place = model.placement             # the batch goes over "data"
+    row, rows = (0, 1) if place is None else (place.data_rank, place.data)
     batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
-                          shard=rank, num_shards=ranks).next()
+                          shard=row, num_shards=rows).next()
     _, m = step(init_state(dict(model.named_parameters())), batch, 0)
     return {"metrics": {k: float(v) for k, v in m.items()},
             "params": lm_params_to_reference(model)}
 
 
 def test_nccl_smoke_step_on_2x2_matches_one_card(dev, tmp_path):
-    """A 2 x 2 mesh on four cards (ZeRO-3 over 4, experts over 2) takes
-    the one-card step: metrics within 1e-5 relative, parameters after the
-    step within 1e-5 absolute (values of order 0.02)."""
+    """A 2 x 2 mesh on four cards (the batch and ZeRO-3 over 2; tensor,
+    sequence and expert parallelism over 2) takes the one-card step:
+    metrics within 1e-5 relative, parameters after the step within 1e-5
+    absolute (values of order 0.02)."""
     if _cards() < 4:
         pytest.skip("needs 4 cards")
     from _ranks import run_ranks

@@ -114,9 +114,13 @@ def test_moe_ffn_matches_reference(kind, n_shared, capacity_factor):
     got, aux = PMoE.moe_ffn(tp, torch.as_tensor(x), mine, kind)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=0)
     assert abs(float(aux) - float(want_aux)) <= 1e-6
-    # with no "model" comm (one rank) the dispatcher takes moe_ffn
-    auto, auto_aux = PMoE.moe_ffn_auto(tp, torch.as_tensor(x), mine, kind)
-    assert torch.equal(auto, got) and torch.equal(auto_aux, aux)
+    # one rank's MoE layer (its module, as a block runs it) is moe_ffn
+    layer = PMoE.MoE(x.shape[-1], p["up"].shape[-1], mine, kind)
+    with torch.no_grad():
+        for k, v in tp.items():
+            (layer.experts if k in ("up", "gate", "down") else layer)._parameters[k].copy_(v)
+    one, one_aux = layer(torch.as_tensor(x))
+    assert torch.equal(one, got) and torch.equal(one_aux, aux)
     tokens = torch.as_tensor(x).reshape(-1, x.shape[-1])
     _, _, top_e = PMoE.route(tp["router"], tokens, mine)
     _, _, keep = PMoE.dispatch(top_e.reshape(-1), mine.n_experts,

@@ -11,6 +11,14 @@ dropped (both packages), at 8.0 none.  Outputs, the aux loss and the
 gradients of sum(out * w) + aux with respect to x, the router, the routed
 experts and the shared experts agree within 1e-5 (float32).
 
+This chunk layout (the batch over "data", the sequence over "model") is
+the one a ranked model's MoE layers now see (``repro_torch.dist.tp``).
+There the shared experts are tensor-parallel over ff: their leaves stay
+whole (no rule of the reference names them), each rank reads 1/M of their
+columns, the sequence is all-gathered before them and their partial sums
+are reduce-scattered after; that case is held to the same reference
+outputs and gradients.
+
 A gloo world of 4 ranks (2 x 2) over ``DistComm`` gives ``LocalComm``'s
 per-rank outputs, aux and gradients bit for bit.
 """
@@ -24,8 +32,9 @@ import pytest
 import torch
 
 from _ranks import ROOT, run_ranks
-from repro_torch.dist.comm import LocalComm
+from repro_torch.dist.comm import LocalComm, Rank
 from repro_torch.models import moe as PMoE
+from repro_torch.models.mlp import mlp_ranks
 from repro_torch.models.config import MoEConfig
 
 D, M = 4, 2                          # the reference's EP mesh (ep_moe.py)
@@ -89,11 +98,15 @@ def _chunk(r: int):
     return slice(d * B // D, (d + 1) * B // D), slice(m * S // M, (m + 1) * S // M)
 
 
-def _port_ep(inp: dict, cf: float, comm, ranks, stats=None, per_rank_leaves=False):
+def _port_ep(inp: dict, cf: float, comm, ranks, stats=None, per_rank_leaves=False,
+             tp_shared=False):
     """The port's EP over ``ranks`` (mesh ranks in ``comm``'s order) on the
     reference devices' chunks.  Returns (outputs, auxs, leaves): with
     ``per_rank_leaves`` every rank gets its own leaf tensors (gradients
-    per rank), else one leaf per weight and for x, sliced per rank."""
+    per rank), else one leaf per weight and for x, sliced per rank.  With
+    ``tp_shared`` the shared experts run tensor-parallel over ff
+    (``models.mlp.mlp_ranks``), the rank reading its 1/M of their ff
+    columns."""
     cfg = dataclasses.replace(CFG, capacity_factor=cf)
     e_loc = cfg.n_experts // M
     full = {k: torch.tensor(v) for k, v in inp.items()}
@@ -112,15 +125,34 @@ def _port_ep(inp: dict, cf: float, comm, ranks, stats=None, per_rank_leaves=Fals
         ps.append(p)
         xs.append(x)
         leaves.append(own)
-    outs, auxs = PMoE.moe_ffn_ep(ps, xs, cfg, "swiglu", comm, stats=stats)
-    return outs, auxs, leaves
+    if not tp_shared:
+        outs, auxs = PMoE.moe_ffn_ep(ps, xs, cfg, "swiglu", comm, stats=stats)
+        return outs, auxs, leaves
+    routed = [{k: v for k, v in p.items() if not k.startswith("shared_")} for p in ps]
+    outs, auxs = PMoE.moe_ffn_ep(routed, xs, cfg, "swiglu", comm, stats=stats)
+    cols = [slice(r % M * FF // M, (r % M + 1) * FF // M) for r in ranks]
+    shared = [{"up": p["shared_up"][:, c], "gate": p["shared_gate"][:, c],
+               "down": p["shared_down"][c]} for p, c in zip(ps, cols)]
+    ranks = [Rank(comm, r % M, M) for r in ranks]
+    sh = mlp_ranks(shared, xs, "swiglu", ranks, sp=True, split=True)
+    return [o + t for o, t in zip(outs, sh)], auxs, leaves
 
 
 @pytest.mark.parametrize("cf", [1.0, 8.0])
 def test_moe_ffn_ep_matches_reference(reference, cf):
+    _check_against_reference(reference, cf, tp_shared=False)
+
+
+@pytest.mark.parametrize("cf", [1.0, 8.0])
+def test_moe_ffn_ep_with_tp_shared_experts_matches_reference(reference, cf):
+    _check_against_reference(reference, cf, tp_shared=True)
+
+
+def _check_against_reference(reference, cf, tp_shared):
     inp = _inputs()
     stats = {}
-    outs, auxs, (leaves, *_) = _port_ep(inp, cf, LocalComm(D, M), range(D * M), stats)
+    outs, auxs, (leaves, *_) = _port_ep(inp, cf, LocalComm(D, M), range(D * M), stats,
+                                        tp_shared=tp_shared)
     w = torch.tensor(inp["w"])
     out = torch.zeros(B, S, DM)
     obj = auxs[0]                                # the same aux on every rank

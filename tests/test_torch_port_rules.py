@@ -32,8 +32,9 @@ import repro_torch.sim, repro_torch.obs, repro_torch.checkpoint
 import repro_torch.optim.adamw, repro_torch.train.step, repro_torch.data.tokens
 import repro_torch.dist.compress, repro_torch.dist.ft, repro_torch.launch.train
 import repro_torch.dist.sharding, repro_torch.dist.comm, repro_torch.dist.zero
+import repro_torch.dist.tp, repro_torch.hw, repro_torch.core.overhead
 import chip_smoke
-import tools.k3_sass, tools.train_ranks
+import tools.k3_sass, tools.train_ranks, tools.serve_ranks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
@@ -42,10 +43,11 @@ print("BAD", bad)
 
 
 def test_port_and_chip_smoke_load_no_jax_or_reference():
-    """Every module of the port (the sharding rules, the comms and the
-    ranked LM among them), chip_smoke.py, tools/k3_sass.py and
-    tools/train_ranks.py (which run on the card's machine, where there is
-    no JAX) import neither jax nor the reference package."""
+    """Every module of the port (the sharding rules, the comms, tensor
+    parallelism and the ranked LM among them), chip_smoke.py,
+    tools/k3_sass.py, tools/train_ranks.py and tools/serve_ranks.py (which
+    run on the card's machine, where there is no JAX) import neither jax
+    nor the reference package."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                                        str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
@@ -54,6 +56,26 @@ def test_port_and_chip_smoke_load_no_jax_or_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 25
+
+
+def test_example_twins_import_only_the_port():
+    """Each ``examples/torch`` twin imports the standard library, numpy,
+    torch and ``repro_torch`` modules only (whose imports the test above
+    holds free of jax and the reference); ``tests/test_torch_examples.py``
+    runs each twin and checks the modules loaded at its end."""
+    import ast
+
+    allowed = {"argparse", "sys", "time", "numpy", "torch", "repro_torch"}
+    twins = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert [p.name for p in twins] == ["quickstart.py", "serve_lm.py", "sparse_flow.py",
+                                       "train_lm.py"]
+    for path in twins:
+        tree = ast.parse(path.read_text())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names}
+        roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom)}
+        assert roots <= allowed and "repro_torch" in roots, (path.name, roots)
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):

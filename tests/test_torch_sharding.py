@@ -126,7 +126,9 @@ def test_batch_and_cache_specs_match_reference(arch):
 
 def test_port_uses_expert_and_zero_dims():
     """What the port acts on: deepseek's routed experts split over "model"
-    at 1 x 4 and 2 x 2 (not at 4 x 1), and ZeRO's dim."""
+    at 1 x 4 and 2 x 2 (not at 4 x 1), ZeRO's dim, and ``shard``: the
+    identity without rules, else the rank's block (batch over "data", the
+    sequence over "model"; a dim that does not divide stays whole)."""
     shapes = _port_shapes("deepseek-moe-16b")
     up = "layers.moe_layers.0.moe.experts.up"                # (64, 2048, 1408)
     for mesh_name, expert, zero in (("1x4", True, None), ("2x2", True, 1),
@@ -136,4 +138,17 @@ def test_port_uses_expert_and_zero_dims():
         assert PS.is_expert(spec) == expert, mesh_name
         assert PS.zero_dim(spec, rules) == zero, mesh_name
     x = torch.ones(2)
-    assert PS.shard(x, "batch") is x                      # activations stay whole
+    assert PS.shard(x, "batch") is x                      # no rules: the identity
+    rules = PS.make_rules_for(get_config("deepseek-moe-16b"), _mesh("2x2"))
+    act = torch.arange(4 * 6 * 3).reshape(4, 6, 3)
+    for d in range(2):
+        for m in range(2):
+            got = PS.shard(act, "batch", "seq_act", None, rules=rules,
+                           coords={"data": d, "model": m})
+            assert torch.equal(got, act[2 * d:2 * d + 2, 3 * m:3 * m + 3])
+    odd = torch.ones(3, 5, 2)
+    assert PS.shard(odd, "batch", "seq_act", None, rules=rules,
+                    coords={"data": 1, "model": 1}).shape == (3, 5, 2)
+    decode = PS.make_rules_for(get_config("deepseek-moe-16b"), _mesh("2x2"), kind="decode")
+    assert PS.shard(act, "batch", "seq_act", None, rules=decode,
+                    coords={"data": 1, "model": 1}).shape == (2, 6, 3)

@@ -1,17 +1,19 @@
 """Training across ranks on the CPU: gloo worlds of four ranks on the
 (data, model) meshes 2 x 2, 4 x 1 and 1 x 4 (``repro_torch.dist.zero``:
-ZeRO-3 over all four ranks, deepseek's experts over "model"), held to the
-port's unsharded step on the same global batch from the same seed.
+the batch and ZeRO-3 over "data"; tensor, sequence and expert parallelism
+over "model"), held to the port's unsharded step on the same global batch
+from the same seed.
 
 deepseek-moe-16b's and chatglm3-6b's smoke configs in float32, the MoE at
 a capacity factor (8.0) that drops no pair: with drops, which pairs drop
 depends on which tokens share a rank.  Tolerances, as
 ``tests/_train_parity.py`` holds the port to the reference:
 
-* the loss and every gradient (gathered whole) of one backward: 1e-5
-  relative (to the leaf's largest gradient).  This holds the experts'
-  gradient scale (their tokens come from every rank of the data row: they
-  are divided by W, not D) and the global gradient norm;
+* the loss and every gradient (gathered whole, after
+  ``Placement.sync_grads``) of one backward: 1e-5 relative (to the leaf's
+  largest gradient).  This holds the gradient scale of every placement
+  (split over "model", whole over it and summed over the data row, FSDP's
+  mean over "data") and the global gradient norm;
 * three AdamW steps: loss, ce, aux, grad norm and lr within 1e-5 relative
   at every step, parameters after the third within 1e-4 absolute (values
   of order 0.02);
@@ -120,12 +122,12 @@ def test_checkpoints_resume_across_meshes(arch, mesh, out):
 
 def test_refusals_before_any_rank_starts():
     """The families not ported across ranks, a batch that does not split
-    over the ranks, and more ranks than visible cards."""
+    over the data ranks, and more ranks than visible cards."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ranked_lm(get_smoke("zamba2-2.7b"), mesh=None)
     with pytest.raises(ValueError, match="does not split"):
         launcher.main(["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
-                       "--data", "2", "--model", "2", "--batch", "6"])
+                       "--data", "2", "--model", "2", "--batch", "5"])
     if torch.cuda.device_count() < 8:
         with pytest.raises(ValueError, match="cards"):
             launcher.main(["--arch", "deepseek-moe-16b", "--smoke", "--data", "2",
@@ -148,8 +150,8 @@ def test_launcher_trains_across_gloo_ranks(capfd):
     """``launch.train`` with ``--data 2 --model 2`` on the CPU: four
     spawned gloo ranks train chatglm3-6b's smoke (bf16 compute) for two
     steps; rank 0 prints the mesh and each rank's losses are finite, and
-    step 0's is the one-process run's within 1e-3 relative (each rank's
-    products see its own rows in bf16)."""
+    step 0's is the one-process run's within 1e-3 relative (the partial
+    sums over "model" round in bf16)."""
     argv = ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "2",
             "--batch", "4", "--seq", "32", "--log-every", "1"]
     ranked = launcher.main(argv + ["--data", "2", "--model", "2"])

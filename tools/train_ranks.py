@@ -14,7 +14,8 @@ the launcher's own loop and rank spawner (``repro_torch.launch.train.run``,
 Per mesh, each rank builds its shard of the model from seed 0 at the
 config's published widths (depth cut only by ``--layers``), bf16 compute,
 float32 parameters and AdamW state, every scanned body checkpointed, and
-trains on its rows of ``--batch`` x ``--seq`` global tokens: ``--warm``
+trains on ``--batch`` x ``--seq`` global tokens (the batch over "data";
+over "model" tensor, sequence and expert parallelism): ``--warm``
 steps, ``--timed`` steps (the launcher's per-step clock; K3's launches are
 counted over them), then one step under ``torch.profiler`` on every rank.
 Prints, per mesh, ms/step, tok/s over the global batch, the share of W x
@@ -24,8 +25,9 @@ the dense bf16 peak that 6 N positions plus the attention's products make
 launches, and per rank the profiled step's device span, idle share and
 NCCL kernel time by collective; then the card's name and power limit, and
 one JSON line of the summaries.  Step 0's losses of two meshes of one model
-are held to each other within 1e-3 relative (bf16 compute; each rank's
-products and expert capacities see its own rows).
+are held to each other within 1e-3 relative (bf16 compute; the partial
+sums over "model" round in bf16, and expert capacities count each
+rank's sequence shard).
 """
 from __future__ import annotations
 
@@ -44,12 +46,11 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.hw import BF16_PEAK  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
 
-# an H100 SXM's dense bf16 tensor-core rate
-BF16_PEAK = 989e12
 # NCCL kernels of a profiled step by collective (all-to-all runs as grouped
 # sends and receives)
 COLLECTIVES = {"all-to-all": "SendRecv", "all-gather": "AllGather",
@@ -250,7 +251,8 @@ def rank_summary(run: RankRun, results: list[dict], label: str = "") -> dict:
         share = None
         rates = f"a CPU rehearsal over gloo, host ms/step {ranks_ms}; no device metric"
     layout = ("one process, no mesh" if label else
-              f"{world} ranks, ZeRO-3 over {world}, experts over {run.model}")
+              f"{world} ranks, the batch and ZeRO-3 over {run.data}, tensor, sequence "
+              f"and expert parallelism over {run.model}")
     line = (f"[{name}] {cfg.n_layers} layers{depth}, {layout}, {run.batch} x {run.seq} "
             f"tokens a step (bf16 compute, float32 parameters and AdamW state; {run.warm} "
             "warm-up steps, "
