@@ -226,15 +226,47 @@ Phases (any failure exits non-zero and prints no result line):
    (d) the four ``examples/torch`` twins at their own sizes
    (``train_lm`` at ``--steps 20``), each in its own process: each exits 0
    and its last line's numbers are finite;
-11. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
+11. the ssm, hybrid, vlm and audio families across ranks
+   (``repro_torch.dist.tp``): rwkv6-3b (2 layers), zamba2-2.7b (one group:
+   6 Mamba2 layers and the shared block, its LoRA drawn), paligemma-3b (2
+   blocks) and musicgen-large (2 blocks) at full width, float32
+   parameters, bf16 compute, each split over M = 4 ``LocalComm`` ranks on
+   the card: a train forward and backward of B 1 x 2048 positions
+   (paligemma's 256 prefix among them; musicgen's (B, S, 4) tokens), the
+   sequence split over the ranks, K3's counters zeroed just before and
+   read just after (forward 2 x, backward 1 x the attention calls x 4
+   ranks); every gradient (gathered whole) held norm-wise, with
+   ``TP_RATIO``, against the unsharded model on the same weights in bf16
+   and float32 (a gradient that is zero in float32 is listed, not held),
+   the loss within 1e-3 of float32's; then a TP prefill of 2048 positions (K3: the attention calls x
+   4 ranks) and 4 greedy decode steps (``prefill_ranks`` /
+   ``decode_ranks``; musicgen's with (B, 1, 4) tokens), the logits equal
+   on every rank, finite and held with ``TP_RATIO`` against the unsharded
+   model fed the same tokens, the greedy tokens float32's wherever its
+   top-2 margin exceeds twice the unsharded bf16 model's error; K3 at one
+   rank's shape of each attending family (the first call of the ranks'
+   training forward: paligemma's S 2048, H 2, KVH 1, hd 256, prefix 256;
+   zamba2's H = KVH = 8 at hd 80; musicgen's 8 at hd 64) against its plain
+   version (``error_bound``), timed beside SDPA (median of 50 launches)
+   and its bound, and K3's backward there against its plain version
+   (``error_bound_bwd``, norm-wise ``K3_BWD_NORM_REL``) beside SDPA's
+   backward; then a ranked 1 x 1 step (one spawned NCCL rank)
+   of chatglm3-6b at full width and 2 layers with 2 microbatches and int8
+   compression, bit for bit the unsharded step with the same
+   microbatches and compressor (loss, grad norm, a SHA-256 of every
+   parameter after the step);
+12. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
    at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, ``_tp`` at
-   moonshot's per-rank shape under tensor parallelism, and K3's backward,
+   moonshot's per-rank shape under tensor parallelism, ``_tp_paligemma``,
+   ``_tp_zamba2`` and ``_tp_musicgen`` at phase 11's rank shapes
+   (launches: those of the TP prefill), and K3's backward,
    ``flash_attention_bwd``, with its launches in starcoder2's timed
    training steps, its launches per step in each training run, its
    numbers at starcoder2's layer shape, the kernel of each of its widths
-   and its numbers at the other layers of (b)), the
+   and its numbers at the other layers of (b) and at phase 11's rank
+   shapes), the
    ``nvidia-smi`` line and, last, the result line ``{"ok": true,
    "device": {...}}``.
 
@@ -310,7 +342,9 @@ from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.model import CausalLM, decode_ranks, prefill_ranks  # noqa: E402
+from repro_torch.models.model import (CausalLM, decode_ranks, loss_ranks,  # noqa: E402
+                                      prefill_ranks)
+from repro_torch.launch.train import spawn_ranks  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_state  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.sim.service import SimService  # noqa: E402
@@ -319,7 +353,8 @@ from repro_torch.dist import tp  # noqa: E402
 from repro_torch.dist.sharding import param_specs  # noqa: E402
 from repro_torch.hw import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from tools.train_ranks import (RankRun, active_params,  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+from tools.train_ranks import (RankRun, active_params, step_digest,  # noqa: E402
                                attention_calls, attention_pairs, busy_us, measure,
                                measure_rank, nvidia_smi, rank_summary)
 
@@ -328,6 +363,13 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the unsharded bf16 layer's (module docstring, phase 10)
 TP_RATIO = 2.5
 TP_RANKS = 4
+# phase 11: the families placed across ranks in this slice, at full width
+# and this depth (zamba2: one group of 6 Mamba2 layers and the shared
+# block), over positions a step and a prompt (paligemma's 256 prefix among
+# them)
+TP_FAMILIES = (("rwkv6-3b", 2), ("zamba2-2.7b", 6), ("paligemma-3b", 2),
+               ("musicgen-large", 2))
+TP_FAMILY_SEQ = 2048
 # the example twins, their arguments and time limits (s)
 EXAMPLES = (("quickstart.py", (), 300), ("sparse_flow.py", (), 300),
             ("serve_lm.py", (), 300), ("train_lm.py", ("--steps", "20"), 600))
@@ -809,6 +851,12 @@ def bound_ratio(err: torch.Tensor, bound: torch.Tensor) -> float:
     return float(torch.where(err == 0, torch.zeros_like(err), err / bound).max())
 
 
+def _cache_leaves(cache: dict) -> list:
+    """The tensors of a cache tree (nested dicts)."""
+    return [t for v in cache.values()
+            for t in (_cache_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def k3_error(q, k, v, got, want, kw: dict) -> tuple[float, float]:
     """(max |got - want|, max of |got - want| / K3's error bound over the
     elements): K3 is within tolerance when the second is at most 1."""
@@ -916,6 +964,8 @@ class Smoke:
         self.k3_bwd_kernels: dict[str, dict] = {}
         self.train: dict[str, dict] = {}
         self.ranks: dict[str, dict] = {}
+        self.tp_launches: dict[str, int] = {}
+        self.k3_bwd_tp: dict[str, dict] = {}
 
     # ------------------------------------------------------------ phase 1
     def build_kernels(self) -> None:
@@ -2909,6 +2959,275 @@ class Smoke:
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
         del one, ranks, logits, caches, calls, got, ref, plain
 
+    # ----------------------------------------------------------- phase 11
+    def tp_family(self, arch: str, layers: int) -> None:
+        """The families placed across ranks in this slice on TP_RANKS
+        ``LocalComm`` ranks on the card (module docstring, phase 11)."""
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        one = CausalLM(cfg, device=self.dev, seed=0)
+        if cfg.family == "hybrid":         # the LoRA's b starts at 0: draw it
+            gen = torch.Generator(device=self.dev).manual_seed(14)
+            with torch.no_grad():
+                for lora in one.layers["lora"]:
+                    for delta in lora.values():
+                        delta.b.normal_(0.0, 0.02, generator=gen)
+        comm = LocalComm(1, TP_RANKS)
+        ranks = tp.split_ranks(one, comm)
+        gen = torch.Generator(device=self.dev).manual_seed(15)
+        vlm, audio = cfg.family == "vlm", cfg.family == "audio"
+        s = TP_FAMILY_SEQ
+        text = s - (cfg.prefix_tokens if vlm else 0)
+        k = (cfg.num_codebooks,) if audio else ()
+        toks = torch.randint(0, cfg.vocab_size, (1, text + 1) + k, generator=gen,
+                             device=self.dev)
+        tokens, labels = toks[:, :-1].contiguous(), toks[:, 1:].clone()
+        labels[:, -1] = -1
+        prefix = (torch.randn(1, cfg.prefix_tokens, cfg.d_model, generator=gen,
+                              device=self.dev) if vlm else None)
+        calls, attend = [], attn_mod._attend
+
+        def recording(q, k_, v, acfg):
+            if not calls:
+                calls.append((q.detach(), k_.detach(), v.detach(),
+                              dict(scale=acfg.scale, softcap=acfg.softcap, causal=True,
+                                   window=acfg.window, prefix_len=acfg.prefix_len)))
+            return attend(q, k_, v, acfg)
+
+        # training: the ranks' forward and backward, then the unsharded model
+        # in bf16 and in float32 on the same weights
+        attn_calls = attention_calls(cfg)
+        attn_mod._attend = recording
+        k3.flash_attention.launches = k3.flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            outs = loss_ranks(ranks, [tokens] * TP_RANKS, [labels] * TP_RANKS,
+                              None if prefix is None else [prefix] * TP_RANKS)
+            sum(o[0] for o in outs).backward()
+        finally:
+            attn_mod._attend = attend
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        launches = (k3.flash_attention.launches, k3.flash_attention_bwd.launches)
+        want = (2 * attn_calls * TP_RANKS, attn_calls * TP_RANKS)
+        if launches != want:
+            raise AssertionError(f"{arch} TP train: K3 launches {launches}, expected {want}")
+        specs = param_specs({n: p.shape for n, p in one.named_parameters()},
+                            tp.rules_for(cfg, 1, TP_RANKS))
+        got = {"loss": outs[0][0].detach()}
+        for n, _ in one.named_parameters():
+            got[n] = tp.whole(comm, [dict(r.named_parameters())[n].grad for r in ranks],
+                              specs[n], grads=True)
+        for r in ranks:
+            r.zero_grad(set_to_none=True)
+        compute = one.dtype
+
+        def unsharded_train(dtype):
+            one.dtype = dtype
+            try:
+                loss, _ = one.loss(tokens, labels, prefix_embeds=prefix)
+                loss.backward()
+            finally:
+                one.dtype = compute
+            res = {"loss": loss.detach(), **{n: p.grad.clone()
+                                             for n, p in one.named_parameters()}}
+            one.zero_grad(set_to_none=True)
+            return res
+
+        plain, ref = unsharded_train(torch.bfloat16), unsharded_train(torch.float32)
+        zero = sorted(n for n in ref if n != "loss" and float(ref[n].norm()) == 0.0)
+        for d in (got, plain, ref):
+            for n in zero:
+                d.pop(n)
+        # the loss is one number: held to float32's within 1e-3 relative
+        # (phase 9's bound for a ranked step), the gradients norm-wise
+        losses = {n: float(d.pop("loss")) for n, d in (("tp", got), ("plain", plain),
+                                                       ("ref", ref))}
+        loss_rel = abs(losses["tp"] - losses["ref"]) / abs(losses["ref"])
+        if not loss_rel <= 1e-3:
+            raise AssertionError(f"{arch} TP train loss {losses['tp']!r}, float32's "
+                                 f"{losses['ref']!r} (rel {loss_rel:.2e} > 1e-3)")
+        log(f"[tp {arch} train] full width, {layers} layers, {TP_RANKS} LocalComm ranks on "
+            f"the card, B 1 x S {s} (the sequence split in {TP_RANKS}): forward and backward "
+            f"{host * 1e3:.1f} ms host time, first call; K3 forward {launches[0]}, backward "
+            f"{launches[1]} launches; loss {losses['tp']!r} vs unsharded bf16 "
+            f"{losses['plain']!r}, float32 {losses['ref']!r} (rel {loss_rel:.2e}, "
+            f"tolerance 1e-3); {len(got)} gradients held"
+            + (f" (float32's zero: {zero})" if zero else ""))
+        self.tp_check(f"{arch} train", got, plain, ref)
+        del got, plain, ref, outs
+        if calls:
+            self.k3_tp_shape(arch, cfg, *calls[0])
+        calls.clear()
+
+        # serving: the ranks' prefill and greedy decode steps against the
+        # unsharded model fed the same tokens
+        one.requires_grad_(False)
+        for r in ranks:
+            r.requires_grad_(False)
+        max_len, steps = s + 8, 4
+        k3.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill_ranks(ranks, [tokens] * TP_RANKS, max_len, torch.float32,
+                                       None if prefix is None else [prefix] * TP_RANKS)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        pre_launches = k3.flash_attention.launches
+        if pre_launches != attn_calls * TP_RANKS:
+            raise AssertionError(f"{arch} TP prefill launched K3 {pre_launches} times, "
+                                 f"expected {attn_calls * TP_RANKS}")
+        if calls:
+            raise AssertionError("recording left on")
+        outs, fed, same = [logits[0]], [], all(torch.equal(t, logits[0]) for t in logits)
+        for i in range(steps):
+            fed.append(outs[-1][:, -1:].argmax(-1))
+            step, caches = decode_ranks(ranks, [fed[-1]] * TP_RANKS, caches, s + i)
+            same = same and all(torch.equal(t, step[0]) for t in step)
+            outs.append(step[0])
+        shapes = {tuple(v.shape) for c in caches[:1] for v in _cache_leaves(c)}
+
+        def unsharded_serve(dtype):
+            one.dtype = dtype
+            try:
+                out, cache = one.prefill(tokens, max_len, torch.float32, prefix_embeds=prefix)
+                res = [out]
+                for i in range(steps):
+                    out, cache = one.decode_step(fed[i], cache, s + i)
+                    res.append(out)
+            finally:
+                one.dtype = compute
+            return res
+
+        plain, ref = unsharded_serve(torch.bfloat16), unsharded_serve(torch.float32)
+        names = ["prefill"] + [f"decode {i}" for i in range(steps)]
+        finite = all(bool(torch.isfinite(t).all()) for t in outs)
+        greedy = []
+        for name, t, u, r in zip(names, outs, plain, ref):
+            v = cfg.vocab_size
+            for row, (a, w, rr, uu) in enumerate(zip(t.reshape(-1, v).argmax(-1),
+                                                      r.reshape(-1, v).argmax(-1),
+                                                      r.reshape(-1, v), u.reshape(-1, v))):
+                top2 = rr.topk(2).values
+                margin, err_u = float(top2[0] - top2[1]), float((uu - rr).abs().max())
+                if int(a) != int(w) and margin > 2 * err_u:
+                    raise AssertionError(f"{arch} TP {name} row {row}: greedy token {int(a)}, "
+                                         f"float32's {int(w)} by a margin {margin:.3e} > 2 x "
+                                         f"{err_u:.3e}")
+                greedy.append(int(a) == int(w))
+        log(f"[tp {arch} serve] {TP_RANKS} LocalComm ranks: a {s}-position prefill "
+            f"{pre_ms:.1f} ms host time (first call; K3 launches {pre_launches}, "
+            f"{attn_calls} a rank) and {steps} greedy decode steps; logits equal on every "
+            f"rank: {same}, finite: {finite}; greedy TP tokens equal float32's in "
+            f"{sum(greedy)} of {len(greedy)} (the others within twice the unsharded bf16 "
+            f"model's own error of a tie); a rank's cache leaves {sorted(shapes)}")
+        if not (same and finite):
+            raise AssertionError(f"the {arch} TP serving logits are off")
+        self.tp_check(f"{arch} serving logits", dict(zip(names, outs)),
+                      dict(zip(names, plain)), dict(zip(names, ref)))
+        key = f"flash_attention_tp_{arch.split('-')[0]}"
+        if key in self.kernels:
+            self.kernels[key]["launches"] = pre_launches
+            self.kernels[key]["launches_per_request"] = {"prefill": pre_launches / TP_RANKS,
+                                                         "decode": 0}
+        self.tp_launches[arch] = pre_launches
+        del one, ranks, logits, caches, outs, plain, ref
+
+    def k3_tp_shape(self, arch: str, cfg, q, k, v, kw) -> None:
+        """K3 and its backward at one rank's shape of ``arch`` under tensor
+        parallelism (the first attention call of the ranks' training
+        forward), each against its plain version and timed (medians, behind
+        a spin kernel) beside SDPA's and its bound; the forward fills a
+        kernels-line entry."""
+        got = k3.flash_attention(q, k, v, **kw)
+        want = k3.flash_attention_ref(q, k, v, **kw)
+        err, ratio = k3_error(q, k, v, got, want, kw)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K3 at {arch}'s TP rank shape: |err| {err:.3e}, "
+                                 f"{ratio:.3f} of the bound")
+        lib_name, lib_fn = library_attention(q, k, v, scale=kw["scale"], softcap=kw["softcap"],
+                                             window=kw["window"], prefix_len=kw["prefix_len"])
+        s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+        label = (f"{arch} TP rank S={s} H={hq} KVH={k.shape[2]} hd={hd}"
+                 + (f" prefix={kw['prefix_len']}" if kw["prefix_len"] else ""))
+        ms = time_ms(lambda: k3.flash_attention(q, k, v, **kw), 50, label=f"K3 {label}")
+        lib_ms = time_ms(lib_fn, 50, label=lib_name)
+        plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
+                           label="K3 plain")
+        pos = torch.arange(s, device=self.dev)
+        pairs = float(k3.visible_mask(pos, pos, prefix_len=kw["prefix_len"]).sum())
+        flops = 4.0 * pairs * hd * hq * q.shape[0]
+        bms, by = bound(2 * (q.numel() + k.numel()) * q.element_size(), flops, q.dtype)
+        key = f"flash_attention_tp_{arch.split('-')[0]}"
+        self.kernels[key] = {
+            "name": key, "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash.py:70", "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms, "model": arch}
+        log(f"[K3 {label}] {q.dtype}: |err| {err:.3e} ({ratio:.3f} of the bound), {ms:.4f} "
+            f"ms/launch (bound {bms:.4f} ms by {by}, {bms / ms:.4f} of it), plain "
+            f"{plain_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms (K3 takes {ms / lib_ms:.2f}x)")
+        dout = torch.randn(q.shape, device=self.dev, generator=torch.Generator(
+            device=self.dev).manual_seed(16)).to(q.dtype)
+        bkw = {n: kw[n] for n in ("scale", "softcap", "window", "prefix_len")}
+        out, lse = k3.flash_attention(q, k, v, return_lse=True, **bkw)
+        grads = k3.flash_attention_bwd(q, k, v, out, dout, lse, **bkw)
+        wants = k3.flash_attention_bwd_ref(q, k, v, out, dout, **bkw)
+        bounds = k3.error_bound_bwd(q, k, v, out, dout, wants, **bkw)
+        worst = max(bound_ratio(g.float() - w.float(), bd)
+                    for g, w, bd in zip(grads, wants, bounds))
+        norm = max(float((g.float() - w.float()).norm() / w.float().norm())
+                   for g, w in zip(grads, wants))
+        if not (worst <= 1.0 and norm <= K3_BWD_NORM_REL):
+            raise AssertionError(f"K3 bwd at {arch}'s TP rank shape: {worst:.3f} of the "
+                                 f"bound, norm-wise {norm:.3e}")
+        lib_name, lib_bwd = library_attention_bwd(q, k, v, dout, **bkw)
+        b_ms = time_ms(lambda: k3.flash_attention_bwd(q, k, v, out, dout, lse, **bkw), 50,
+                       label=f"K3 bwd {label}")
+        b_lib = time_ms(lib_bwd, 20, label=f"{lib_name} backward")
+        b_bms, b_by = bound(2 * (4 * q.numel() + 4 * k.numel()), 10.0 * hd * hq * pairs,
+                            q.dtype)
+        self.k3_bwd_tp[arch] = {"ms": b_ms, "library_ms": b_lib, "bound_ms": b_bms,
+                                "bound_by": b_by, "shape": label, "worst_of_bound": worst}
+        log(f"[K3 bwd {label}] worst |err| / bound {worst:.3f}, norm-wise {norm:.3e} (limit "
+            f"{K3_BWD_NORM_REL}); {b_ms:.4f} ms/launch, {lib_name}'s backward {b_lib:.4f} ms "
+            f"(the kernel takes {b_ms / b_lib:.2f}x); bound {b_bms:.4f} ms by {b_by} "
+            f"({b_bms / b_ms:.4f} of it)")
+        del got, want, out, lse, grads, wants, bounds, dout
+
+    def tp_families(self) -> None:
+        """Phase 11: each family of ``TP_FAMILIES`` across TP_RANKS ranks,
+        then the ranked 1 x 1 step with microbatches and int8."""
+        for arch, layers in TP_FAMILIES:
+            t1 = time.perf_counter()
+            self.tp_family(arch, layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[tp {arch}] {time.perf_counter() - t1:.1f} s")
+        if "flash_attention_bwd" in self.kernels:
+            self.kernels["flash_attention_bwd"]["tp_layers"] = self.k3_bwd_tp
+        self.micro_int8_ranked_1x1()
+
+    def micro_int8_ranked_1x1(self) -> None:
+        """A ranked 1 x 1 step (``dist.zero.ranked_lm``, one NCCL rank,
+        spawned) with microbatches and int8 compression against the
+        unsharded step with the same microbatches and compressor, in this
+        process: loss, grad norm and every parameter after the step bit for
+        bit (``tools.train_ranks.step_digest``)."""
+        run = RankRun("chatglm3-6b", 1, 1, 2, 1024, 0, 0, layers=2, microbatches=2,
+                      compress="int8")
+        t0 = time.perf_counter()
+        ranked = spawn_ranks(step_digest, 1, 1, "cuda", run, timeout=600)[0]
+        one = step_digest(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[ranks microbatches int8 1x1] chatglm3-6b at full width and 2 layers, 2 x 1024 "
+            f"tokens in 2 microbatches, int8 compression: ranked 1 x 1 {ranked} vs unsharded "
+            f"{one}; {time.perf_counter() - t0:.1f} s")
+        if ranked != one:
+            raise AssertionError("the ranked 1 x 1 step with microbatches and int8 is not the "
+                                 "unsharded step bit for bit")
+
     def examples_main(self) -> None:
         """The four example twins, each in its own process (module
         docstring, 10(d))."""
@@ -2937,17 +3256,21 @@ class Smoke:
         nh = model.layers["mamba"][0].ssm.a_log.shape[0]
         worst = []
 
-        def hook(mod, args):
-            proj = args[0] @ mod.cast("in_proj", args[0].dtype)[:, -nh:]
-            dt = torch.nn.functional.softplus(proj.float() + mod.dt_bias.float())
-            worst.append(float((dt * torch.exp(mod.a_log.float())).max()))
+        def hook(layer, args):
+            ssm = layer.ssm
+            h = rms_norm(args[0], layer.norm, cfg.norm_eps)     # the layer's pre-norm
+            proj = h @ ssm.cast("in_proj", h.dtype)[:, -nh:]
+            dt = torch.nn.functional.softplus(proj.float() + ssm.dt_bias.float())
+            worst.append(float((dt * torch.exp(ssm.a_log.float())).max()))
 
-        handles = [layer.ssm.register_forward_pre_hook(hook)
-                   for layer in model.layers["mamba"]]
+        handles = [layer.register_forward_pre_hook(hook) for layer in model.layers["mamba"]]
         with torch.no_grad():
             model.forward_hidden(torch.as_tensor(batch["tokens"], device=self.dev))
         for handle in handles:
             handle.remove()
+        if len(worst) != cfg.n_layers:
+            raise AssertionError(f"the dt x A hooks saw {len(worst)} of {cfg.n_layers} "
+                                 "Mamba2 layers")
         log(f"[train {cfg.name} SSD] largest dt x A over {len(worst)} Mamba2 layers of "
             f"one forward after the timed steps: {max(worst):.2f} (float32 exp(-dt A) "
             "underflows to 0 past ~103)")
@@ -3067,6 +3390,9 @@ def main() -> int:
     t1 = time.perf_counter()
     smoke.examples_main()
     log(f"[examples] phase in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    smoke.tp_families()
+    log(f"[tp families] phase in {time.perf_counter() - t1:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -72,19 +72,35 @@ def _sequence(rng: np.random.Generator, cfg: DataConfig, length: int) -> np.ndar
     return out
 
 
-def make_batch(cfg: DataConfig, step: int, shard: int = 0, num_shards: int = 1):
-    """Global-batch slice for `shard` of `num_shards` at `step`.
+def shard_rows(global_batch: int, shard: int, num_shards: int,
+               microbatches: int = 1) -> list[int]:
+    """The global rows of ``shard`` of ``num_shards``, in order: its slice
+    of each of ``microbatches`` contiguous microbatches in turn (the
+    reference's step splits the global batch into microbatches first and
+    shards each over the dp axes), so that the shard's microbatch i is
+    its i-th contiguous part.  One microbatch: rows shard x B/num_shards
+    onward."""
+    assert global_batch % (num_shards * microbatches) == 0
+    mb = global_batch // microbatches
+    per = mb // num_shards
+    return [i * mb + shard * per + j for i in range(microbatches) for j in range(per)]
+
+
+def make_batch(cfg: DataConfig, step: int, shard: int = 0, num_shards: int = 1,
+               microbatches: int = 1):
+    """Global-batch slice for `shard` of `num_shards` at `step`: the rows
+    of :func:`shard_rows` (with ``microbatches``, each microbatch's slice).
 
     Returns dict of numpy arrays: tokens/labels (+ prefix_embeds for vlm).
     Labels are next-token: labels[t] = tokens[t+1] (last label masked -1).
     """
-    assert cfg.global_batch % num_shards == 0
-    b_local = cfg.global_batch // num_shards
+    rows = shard_rows(cfg.global_batch, shard, num_shards, microbatches)
+    b_local = len(rows)
     k = max(1, cfg.num_codebooks)
     s_text = cfg.seq_len - cfg.prefix_tokens
     toks = np.empty((b_local, s_text + 1, k), dtype=np.int64)
-    for i in range(b_local):
-        rng = _rng_for(cfg, step, shard * b_local + i)
+    for i, row in enumerate(rows):
+        rng = _rng_for(cfg, step, row)
         for kb in range(k):
             toks[i, :, kb] = _sequence(rng, cfg, s_text + 1)
     tokens = toks[:, :-1]
@@ -103,14 +119,17 @@ def make_batch(cfg: DataConfig, step: int, shard: int = 0, num_shards: int = 1):
 class TokenPipeline:
     """Stateful cursor wrapper used by the trainer (cursor = step index)."""
 
-    def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1):
+    def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1,
+                 microbatches: int = 1):
         self.cfg = cfg
         self.shard = shard
         self.num_shards = num_shards
+        self.microbatches = microbatches
         self.step = 0
 
     def next(self):
-        batch = make_batch(self.cfg, self.step, self.shard, self.num_shards)
+        batch = make_batch(self.cfg, self.step, self.shard, self.num_shards,
+                           self.microbatches)
         self.step += 1
         return batch
 

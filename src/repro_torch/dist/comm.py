@@ -270,6 +270,15 @@ def reduce_seq(comm, xs: list, sp: bool) -> list:
     return comm.scatter_sum(xs, 1) if sp else comm.sum(xs)
 
 
+def cut_seq(xs: list, ranks: list, sp: bool) -> list:
+    """Where every rank holds a whole-sequence result (a leaf whole over
+    "model", or columns gathered): each rank's own sequence shard with
+    ``sp``, else the results as they are."""
+    if not sp:
+        return xs
+    return [x.chunk(r.M, 1)[r.m] for x, r in zip(xs, ranks)]
+
+
 class ScaleGrad(torch.autograd.Function):
     """The identity whose gradient is scaled by ``c``."""
 
@@ -283,5 +292,5 @@ class ScaleGrad(torch.autograd.Function):
         return grad * ctx.c, None
 
 
-__all__ = ["SOLO", "DistComm", "LocalComm", "Rank", "ScaleGrad", "gather_seq",
+__all__ = ["SOLO", "DistComm", "LocalComm", "Rank", "ScaleGrad", "cut_seq", "gather_seq",
            "reduce_seq"]

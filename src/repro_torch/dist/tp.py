@@ -1,7 +1,7 @@
-"""Tensor and sequence parallelism over the "model" axis for the dense and
-moe families: the reference's rules (``repro_torch.dist.sharding``) acting
-as its ``shard`` annotations and ``param_specs`` make them act inside
-``jax.jit``.
+"""Tensor and sequence parallelism over the "model" axis for every family
+(dense, vlm, audio, moe, ssm, hybrid): the reference's rules
+(``repro_torch.dist.sharding``) acting as its ``shard`` annotations and
+``param_specs`` make them act inside ``jax.jit``.
 
 On a (data D, model M) mesh with M > 1, model rank m of a data row holds:
 
@@ -41,10 +41,28 @@ replicates K and V there: ``fit`` drops the axis).  The cache then holds
 every KV head on every rank, as ``cache_specs`` places it.
 
 The embedding is vocab-parallel (ids outside the rank's rows give zeros,
-then a sum over "model"), the logits stay split over the vocabulary
-(``model.py:114``), and the cross entropy takes each row's maximum and
-log-sum-exp over "model".  gemma2's final softcap is elementwise, before
-it.
+then a sum over "model"; a vlm's prefix is added after that sum), the
+logits stay split over the vocabulary (``model.py:114``), and the cross
+entropy takes each row's maximum and log-sum-exp over "model".  gemma2's
+final softcap is elementwise, before it.  The audio family's tables (K,
+V, D) split on V like the text table; its head (D, K V) splits on its
+codebook-major columns, so a rank holds whole codebooks or a part of
+one, and the maximum and log-sum-exp of each codebook reduce over the
+ranks that hold its columns (the others add -inf and 0).
+
+The other families, by the same name rules.  rwkv6 (``models.rwkv6``):
+``tmix.wk``/``wv`` on their columns (heads), ``tmix.wo`` on its rows,
+``cmix.wk`` on its ff columns and ``cmix.wv`` (d_ff, d) on its output
+columns (the name ``wv``); ``wr``, ``wg``, the decay, ``u``, the norms
+and the mixes whole, a rank reading its heads' columns.  A rank runs its
+H/M heads' WKV and group norm on the gathered sequence; where a head is
+cut (40 heads at M = 16) the projections are gathered and every head
+computed, and the state holds every head, as ``cache_specs`` places it.
+zamba2 (``models.mamba2``, ``transformer.SharedAttn``): no rule names a
+Mamba2 leaf, so each rank runs every Mamba2 layer whole on the gathered
+sequence and keeps its own positions; decode steps the rank's heads of
+the ``ssm`` state (sum of squares and ``out_proj`` summed over "model").
+The shared block runs as a dense block, its LoRA leaves whole.
 
 This module places the parameters and marks each block with its
 ``Rank``; the passes are the model's own (``models.model.*_ranks``,
@@ -65,11 +83,12 @@ import torch
 from torch import nn
 
 from ..models.moe import Experts, MoE
-from ..models.transformer import DenseBlock, MoEBlock
+from ..models.rwkv6 import RWKVLayer
+from ..models.transformer import DenseBlock, MambaLayer, MoEBlock, SharedAttn
 from .comm import Rank
 from .sharding import make_rules_for, param_specs
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 # --------------------------------------------------------------------------
@@ -84,17 +103,31 @@ def model_dim(spec: tuple) -> int | None:
 
 
 def check_tp(cfg, model: int) -> None:
-    """Raise unless this config runs tensor-parallel over ``model`` ranks."""
+    """Raise unless this config's leaves and activations split over
+    ``model`` ranks as the rules place them.  What cannot be split: a
+    query head of an attention layer (attention's unit: each rank attends
+    with whole query heads), an expert, and an audio head whose codebook
+    blocks and column shards neither hold whole codebooks nor cut one
+    evenly.  A column shard that holds a fraction of a KV head (paligemma's
+    one KV head) or of an rwkv6 head is gathered over "model" instead."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run across ranks in "
-            f"repro_torch (ported: {', '.join(FAMILIES)}; ROADMAP §1 item 6)")
-    if model > 1 and cfg.n_heads % model:
-        raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} heads do not split over "
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has no placement "
+                                  f"across ranks (families: {', '.join(FAMILIES)})")
+    if model == 1:
+        return
+    if cfg.family != "ssm" and cfg.n_heads % model:
+        raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} query heads do not split over "
                                   f"{model} model ranks")
-    if model > 1 and cfg.moe is not None and cfg.moe.n_experts % model:
+    if cfg.moe is not None and cfg.moe.n_experts % model:
         raise NotImplementedError(f"{cfg.name}: {cfg.moe.n_experts} experts do not split "
                                   f"over {model} model ranks")
+    if cfg.family == "audio" and not cfg.tie_embeddings:
+        cols, v = cfg.num_codebooks * cfg.vocab_size, cfg.vocab_size
+        part = cols // model
+        if cols % model == 0 and part % v and v % part:
+            raise NotImplementedError(
+                f"{cfg.name}: the head's {cols} codebook-major columns split into shards "
+                f"of {part}, which neither hold whole codebooks of {v} nor cut one evenly")
 
 
 def shard_module_(module: nn.Module, prefix: str, specs: dict, m: int, M: int,
@@ -123,7 +156,7 @@ def attach(model: nn.Module, rank: Rank) -> None:
     ``rank``'s."""
     model.tp = rank
     for module in model.modules():
-        if isinstance(module, (DenseBlock, MoEBlock)):
+        if isinstance(module, (DenseBlock, MoEBlock, RWKVLayer, MambaLayer, SharedAttn)):
             module.tp = rank
         if isinstance(module, MoE):
             module.comm = rank.comm

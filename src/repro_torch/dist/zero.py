@@ -10,11 +10,14 @@ process a rank.
   of the MoE's routed experts.  Its parameters are their shards under
   ``param_specs`` over "model".
 * ZeRO-3 goes over "data" only: ``torch.distributed.fsdp.fully_shard`` on
-  each body that ``stack_forward`` checkpoints (a block or a local/global
-  pair) and on the root (embedding, final norm, head), over the D ranks
-  of the rank's "model" coordinate, each leaf on the dim the rules give
-  ZeRO (``zero_dim``).  A leaf the rules give no ZeRO dim stays whole on
-  every data rank (FSDP ignores it).  With D = 1 nothing is FSDP'd.
+  each body that ``stack_forward`` checkpoints (a block, a local/global
+  pair or an rwkv6 layer; each Mamba2 layer of a zamba2 group) and on the
+  root (embedding, final norm, head, and zamba2's shared block and LoRA
+  sets: one unit read by every group, gathered once a step and reduced
+  once, after the backward has summed its uses), over the D ranks of the
+  rank's "model" coordinate, each leaf on the dim the rules give ZeRO
+  (``zero_dim``).  A leaf the rules give no ZeRO dim stays whole on every
+  data rank (FSDP ignores it).  With D = 1 nothing is FSDP'd.
 
 Gradients: each rank's loss carries 1/M into the backward, so the sum of
 every rank's loss is the sum of the D data rows' losses; FSDP averages
@@ -31,8 +34,8 @@ cut to the rank's "model" shards and sharded over "data" before the next
 body exists: no rank ever holds the whole model, and a ranked model from
 seed s holds the values of an unsharded model from seed s.
 
-Ported: the dense and moe families; the ssm, hybrid, vlm and audio
-families are refused (ROADMAP §1 item 6).
+Every family is placed (``dist.tp.FAMILIES``); only a split that cannot
+be made is refused (``dist.tp.check_tp``).
 """
 from __future__ import annotations
 
@@ -145,12 +148,19 @@ class Placement:
 
 
 def _bodies(model: CausalLM):
-    """(name prefix, body) of every scanned body, in ``init``'s order."""
+    """(name prefix, body, whether it is an FSDP unit) of every part of the
+    stack, in ``init``'s order: each scanned block, pair or layer (a unit),
+    and zamba2's shared block and its LoRA sets, which every group reads
+    (the root's: FSDP2 gathers them once a step, and their gradient is the
+    sum over the groups' uses before it is reduced)."""
     layers = model.layers
     groups = layers.items() if isinstance(layers, nn.ModuleDict) else [("", layers)]
     for group, blocks in groups:
+        if not isinstance(blocks, nn.ModuleList):
+            yield f"layers.{group}", blocks, False
+            continue
         for i, block in enumerate(blocks):
-            yield f"layers.{group + '.' if group else ''}{i}", block
+            yield f"layers.{group + '.' if group else ''}{i}", block, group != "lora"
 
 
 def _names(module: nn.Module, prefix: str, recurse: bool = True) -> dict:
@@ -192,10 +202,13 @@ def _build(cfg: ModelConfig, mesh, dev: torch.device, seed: int | None) -> Causa
         if M > 1:
             tp.shard_module_(module, prefix, place.specs, m, M, recurse)
 
-    def zero(module, prefix, recurse=True):
-        """ZeRO-3 over "data"; leaves with no ZeRO dim stay whole."""
+    units: set = set()
+
+    def zero(module, names: dict):
+        """ZeRO-3 over "data" of the parameters ``names`` ({parameter:
+        name}) that ``module`` manages; leaves with no ZeRO dim stay
+        whole."""
         if place.data > 1:
-            names = _names(module, prefix, recurse)
             whole = {p for p, n in names.items() if place.zero_dim(n) is None}
             fully_shard(module, mesh=data_mesh, ignored_params=whole or None,
                         shard_placement_fn=place.shard_fn(names))
@@ -203,7 +216,7 @@ def _build(cfg: ModelConfig, mesh, dev: torch.device, seed: int | None) -> Causa
     model.to_empty(device=dev, recurse=False)
     if seed is not None:
         param_init(model.embed, gen)
-    for prefix, body in _bodies(model):
+    for prefix, body, unit in _bodies(model):
         if seed is None:
             cut(body, prefix)                 # on the meta device
             body.to_empty(device=dev)
@@ -211,7 +224,10 @@ def _build(cfg: ModelConfig, mesh, dev: torch.device, seed: int | None) -> Causa
             body.to_empty(device=dev)
             body.reset_parameters(gen)        # drawn whole, then cut
             cut(body, prefix)
-        zero(body, prefix)
+        if unit:
+            names = _names(body, prefix)
+            units.update(names.values())
+            zero(body, names)
     if seed is not None:
         model.final_norm.fill_(0.0 if cfg.post_norms else 1.0)
         if not cfg.tie_embeddings:
@@ -222,7 +238,7 @@ def _build(cfg: ModelConfig, mesh, dev: torch.device, seed: int | None) -> Causa
     cut(model, "", recurse=False)
     if M > 1:
         tp.attach(model, tp.Rank(place.comm, m, M, place.rules))
-    zero(model, "", recurse=False)
+    zero(model, {p: n for p, n in _names(model, "").items() if n not in units})
     return model
 
 

@@ -18,6 +18,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --data 1 --model 4 --requests 8 --slots 4 --prompt-len 2048 --max-new 32 \
         --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \
+        --device cpu --data 2 --model 2 --requests 4 --slots 2 --prompt-len 16 --max-len 32
 
 Prompts are tokens only, as in the reference's launcher: paligemma's
 first 256 positions (its ``prefix_tokens``) then attend bidirectionally
@@ -29,16 +31,16 @@ taken on, and the launches of kernel K3 in each phase (one per attention
 layer per prefilled request: every layer of the dense and moe families,
 zamba2's shared block once per group, none for rwkv6; none in decode).
 
-``--data D --model M`` serves the dense and moe families across W = D x
+``--data D --model M`` serves every family but audio (F6) across W = D x
 M ranks (``repro_torch.dist.zero.ranked_lm``, ``repro_torch.dist.tp``):
 data row d serves the requests whose id is d mod D in ``--slots`` / D
 slots, its M ranks in lockstep, each holding its heads, ff and vocab
-slices, its experts and its KV heads of the cache (``cache_specs``);
-prefill splits the prompt over the sequence, decode does not, and every
-rank samples the same greedy token from the logits gathered over the
-vocabulary.  The rates are over all rows (tokens over the slowest row's
-time).  A mesh that cannot start (more ranks than cards, a family not
-ported across ranks) fails before any rank serves.
+slices, its experts and its KV heads of the cache (``cache_specs``;
+rwkv6's and Mamba2's recurrent states: the rank's heads); prefill splits
+the prompt over the sequence, decode does not, and every rank samples
+the same greedy token from the logits gathered over the vocabulary.  The rates are over all rows (tokens over the slowest row's
+time).  A mesh that cannot start (more ranks than cards, a split that
+cannot be made, ``dist.tp.check_tp``) fails before any rank serves.
 """
 from __future__ import annotations
 

@@ -9,9 +9,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --smoke --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ck
     # across ranks: a (data, model) mesh, one process per rank, spawned here
-    # (NCCL, one card each; gloo with --device cpu)
+    # (NCCL, one card each; gloo with --device cpu); any family
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b \\
         --smoke --device cpu --data 2 --model 2 --steps 3 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --smoke --device cpu --data 2 --model 2 --steps 3 --batch 8 --seq 64 \\
+        --microbatches 2 --compress int8
 
 Wires together: config registry, synthetic data pipeline, AdamW, the
 checkpointed train step, checkpoint store (async saves + preemption
@@ -22,14 +25,18 @@ the reference's pytree layout (``convert``) and ``extra={"step",
 family the port serves trains (``--arch`` over ``configs.ARCHS``): a vlm's
 batches carry ``prefix_embeds``, a MoE's loss adds the router's aux.
 
-``--data D --model M`` (default 1 x 1, one process) trains the dense and
-moe families across W = D x M ranks (``repro_torch.dist.zero``): the
-global batch over "data" (the M ranks of data row d take shard d of D),
+``--data D --model M`` (default 1 x 1, one process) trains every family
+across W = D x M ranks (``repro_torch.dist.zero``): the global batch over
+"data" (the M ranks of data row d take shard d of D of each microbatch),
 ZeRO-3 over "data", and over "model" tensor parallelism of heads, ff and
 vocab, the stream split over the sequence between layers, and the MoE's
-experts split (``repro_torch.dist.tp``).  The launcher spawns the W
-processes itself (:func:`spawn_ranks`).  It raises when W exceeds the
-visible cards or D does not divide ``--batch``.  Rank 0 prints, with tok/s over the global batch;
+experts split (``repro_torch.dist.tp``).  ``--microbatches`` and
+``--compress`` act as on one device: the global batch splits into
+contiguous microbatches, each sharded over "data", and the compressor
+sees each leaf whole.  The launcher spawns the W processes itself
+(:func:`spawn_ranks`).  It raises when W exceeds the visible cards, D x
+``--microbatches`` does not divide ``--batch``, or the config does not
+split over M (``dist.tp.check_tp``).  Rank 0 prints, with tok/s over the global batch;
 each rank's peak device memory is printed at the end.  Checkpoints are
 gathered leaf by leaf and written by rank 0, in the same layout: a run
 resumes on any mesh or on one card.  ``--layers`` cuts the depth.
@@ -70,17 +77,20 @@ def _smoke_100m(arch: str):
         n_kv_heads=4, d_ff=3072, vocab_size=49152)
 
 
-def build(args, mesh=None):
-    """(cfg, model, step_fn, data_cfg); ``mesh``: this rank's
-    (``launch.mesh.make_lm_mesh``), or None for one device."""
+def _config(args):
     if getattr(args, "smoke100m", False):
         cfg = _smoke_100m(args.arch)
     elif args.smoke:
         cfg = get_smoke(args.arch)
     else:
         cfg = get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return dataclasses.replace(cfg, n_layers=args.layers) if args.layers else cfg
+
+
+def build(args, mesh=None):
+    """(cfg, model, step_fn, data_cfg); ``mesh``: this rank's
+    (``launch.mesh.make_lm_mesh``), or None for one device."""
+    cfg = _config(args)
     model = (CausalLM(cfg, device=args.device, seed=args.seed) if mesh is None
              else ranked_lm(cfg, mesh, seed=args.seed))
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -143,7 +153,8 @@ def run(args, mesh=None, probe=None) -> dict:
     rank, ranks = (0, 1) if place is None else (place.rank, place.ranks)
     say = print if rank == 0 else (lambda *a, **k: None)
     row, rows = (0, 1) if place is None else (place.data_rank, place.data)
-    pipe = TokenPipeline(data_cfg, shard=row, num_shards=rows)
+    pipe = TokenPipeline(data_cfg, shard=row, num_shards=rows,
+                         microbatches=args.microbatches)
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
     watchdog = StepWatchdog()
     preempt = PreemptionHandler()
@@ -293,10 +304,14 @@ def main(argv=None):
     """Returns the losses (across ranks: rank 0's, the means over the ranks)."""
     args = parse_args(argv)
     world = args.data * args.model
+    if args.batch % (args.data * args.microbatches):
+        raise ValueError(f"--batch {args.batch} does not split into {args.microbatches} "
+                         f"microbatches over {args.data} data ranks")
     if world == 1:
         return run(args)["losses"]
-    if args.batch % args.data:
-        raise ValueError(f"--batch {args.batch} does not split over {args.data} data ranks")
+    from repro_torch.dist.tp import check_tp
+
+    check_tp(_config(args), args.model)
     return spawn_ranks(run, args.data, args.model, args.device, args)[0]["losses"]
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.comm import SOLO, cut_seq, gather_seq
 from .config import SSMConfig
 from .layers import CastParams, empty_param, param_init
 
@@ -63,10 +64,6 @@ class Mamba2(CastParams):
         nh = self.a_log.shape[0]
         self.a_log.copy_(torch.as_tensor(
             np.log(np.linspace(1.0, 16.0, nh, dtype=np.float32))))
-
-    def forward(self, x: torch.Tensor, state=None):
-        return mamba2_forward(self.weights(x.dtype, keep=RAW), x, self.cfg,
-                              self.d_model, state)
 
 
 def causal_conv(p: dict, u: torch.Tensor, state=None):
@@ -144,21 +141,12 @@ def ssd_steps(xh, bt, ct, a, dt, state):
     return torch.stack(ys, dim=1), state
 
 
-def mamba2_forward(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
-                   state=None):
-    """x: (B, S, D) -> (out, new_state).
-
-    ``p``: ``in_proj``, ``conv_w``, ``conv_b``, ``out_proj``,
-    ``norm_scale`` in x's dtype, ``a_log``/``dt_bias``/``d_skip`` in the
-    parameter dtype.  ``state``: None (a fresh sequence; no state out),
-    ``"final"`` (a fresh sequence; its final state out, as prefill wants)
-    or ``{"ssm": (B, nh, N, P) float32, "conv": (B, K-1, C)}`` to continue
-    from (decode).  The new state is ``{"ssm", "conv"}``."""
+def _gated(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int, state, return_final,
+           heads: slice):
+    """in_proj, the conv over every channel, the SSD over ``heads``, the
+    skip and the gate: (y (B, S, len(heads) P) in x's dtype, new state)."""
     b, s, _ = x.shape
     dt_ = x.dtype
-    return_final = isinstance(state, str) and state == "final"
-    if return_final:
-        state = None
     d_inner = cfg.expand * d_model
     nh = d_inner // cfg.head_dim
     z, xin, bc, dtproj = torch.split(x @ p["in_proj"],
@@ -171,6 +159,12 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     dt_act = F.softplus(dtproj.float() + p["dt_bias"].float())  # (B,S,H)
     a = torch.exp(-dt_act * torch.exp(p["a_log"].float()))
     xh = xin.reshape(b, s, nh, cfg.head_dim)
+    d_skip = p["d_skip"].float()
+    if heads != slice(0, nh):            # decode on this rank's heads
+        xh, a, dt_act, d_skip = xh[:, :, heads], a[:, :, heads], dt_act[:, :, heads], \
+            d_skip[heads]
+        z = z[..., heads.start * cfg.head_dim:heads.stop * cfg.head_dim]
+    hl = xh.shape[2]
 
     if state is None and s % cfg.chunk == 0 and s > 1:
         y, s_final = ssd_chunked(xh, bt, ct, a, dt_act, cfg.chunk)
@@ -178,15 +172,69 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     else:
         ssm = None if state is None else state.get("ssm")
         if ssm is None:
-            ssm = torch.zeros(b, nh, cfg.d_state, cfg.head_dim, device=x.device)
+            ssm = torch.zeros(b, hl, cfg.d_state, cfg.head_dim, device=x.device)
         y, ssm = ssd_steps(xh, bt, ct, a, dt_act, ssm)
         new_state = {"ssm": ssm, "conv": conv_state}
 
-    y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, s, d_inner).to(dt_)
-    # gated RMSNorm (the mamba2 convention)
-    y = y * F.silu(z)
-    var = y.float().square().mean(-1, keepdim=True)
-    y = (y.float() * torch.rsqrt(var + 1e-6)).to(dt_)
-    y = y * p["norm_scale"]
-    return y @ p["out_proj"], new_state
+    y = y + d_skip[None, None, :, None] * xh.float()
+    y = y.reshape(b, s, hl * cfg.head_dim).to(dt_)
+    return y * F.silu(z), new_state
+
+
+def mamba2_ranks(ps: list, xs: list, cfg: SSMConfig, d_model: int, states: list,
+                 ranks: list, sp: bool = False):
+    """Mamba2 of each rank of a data row (``ps``: its weights, every leaf
+    whole: no rule names one).  ``states`` as :func:`mamba2_forward`'s.
+
+    A fresh sequence (train, prefill) runs the whole layer on the gathered
+    sequence on every rank, which keeps its own positions with ``sp``
+    (prefill's final ``ssm`` state cut to the rank's heads where the heads
+    split over "model", as ``cache_specs`` places it; ``conv`` whole).  A
+    decode step from a cache whose ``ssm`` holds the rank's heads runs the
+    SSD on those heads: the gated RMSNorm over all of d_inner takes its sum
+    of squares over "model", and ``out_proj``'s partial products (the
+    rank's rows) are summed over "model".  Returns (outs, new states)."""
+    comm, r0 = ranks[0].comm, ranks[0]
+    d_inner = cfg.expand * d_model
+    nh = d_inner // cfg.head_dim
+    split = r0.M > 1 and nh % r0.M == 0
+    fresh = not isinstance(states[0], dict)
+    if fresh:
+        xs = gather_seq(comm, xs, sp)
+    parts = []
+    for p, x, state, r in zip(ps, xs, states, ranks):
+        final = isinstance(state, str) and state == "final"
+        own = (slice(r.m * nh // r.M, (r.m + 1) * nh // r.M) if split and not fresh
+               else slice(0, nh))
+        y, st = _gated(p, x, cfg, d_model, None if final else state, final, own)
+        if final and split:
+            st["ssm"] = st["ssm"][:, r.m * nh // r.M:(r.m + 1) * nh // r.M]
+        parts.append((y, st, own))
+    if split and not fresh:
+        sums = comm.sum([y.float().square().sum(-1, keepdim=True) for y, _, _ in parts])
+        var = [t / d_inner for t in sums]
+    else:
+        var = [y.float().square().mean(-1, keepdim=True) for y, _, _ in parts]
+    outs = []
+    for p, (y, _, own), v in zip(ps, parts, var):
+        cols = slice(own.start * cfg.head_dim, own.stop * cfg.head_dim)
+        y = (y.float() * torch.rsqrt(v + 1e-6)).to(y.dtype)
+        y = y * p["norm_scale"][cols]
+        outs.append(y @ p["out_proj"][cols])
+    if split and not fresh:
+        outs = comm.sum(outs)
+    return cut_seq(outs, ranks, sp and fresh), [st for _, st, _ in parts]
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
+                   state=None):
+    """x: (B, S, D) -> (out, new_state).
+
+    ``p``: ``in_proj``, ``conv_w``, ``conv_b``, ``out_proj``,
+    ``norm_scale`` in x's dtype, ``a_log``/``dt_bias``/``d_skip`` in the
+    parameter dtype.  ``state``: None (a fresh sequence; no state out),
+    ``"final"`` (a fresh sequence; its final state out, as prefill wants)
+    or ``{"ssm": (B, nh, N, P) float32, "conv": (B, K-1, C)}`` to continue
+    from (decode).  The new state is ``{"ssm", "conv"}``."""
+    (out,), (st,) = mamba2_ranks([p], [x], cfg, d_model, [state], [SOLO])
+    return out, st

@@ -44,7 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..dist.comm import SOLO, ScaleGrad, gather_seq, reduce_seq
+from ..dist.comm import SOLO, ScaleGrad, cut_seq, gather_seq, reduce_seq
 from .config import ModelConfig
 from .layers import CastParams, empty_param, param_init, rms_norm
 from .transformer import (
@@ -110,8 +110,19 @@ class CausalLM(CastParams):
     def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``tokens`` in the compute dtype.  Audio:
         (B, S, K) codebook tokens, the K lookups summed in codebook order.
-        Where the table is split over "model" (this rank's rows), ids
-        outside its rows give zeros."""
+        Where the table is split over "model" (this rank's rows of the
+        vocabulary, of every codebook's table for audio), ids outside its
+        rows give zeros."""
+        split = "embed" in getattr(self, "tp_split", ())
+        rows = self.embed.shape[-2]
+
+        def take(table, ids):
+            if not split:
+                return table[ids].to(self.dtype)
+            ids = ids - self.tp.m * rows
+            ok = ((ids >= 0) & (ids < rows)).to(self.dtype)[..., None]
+            return table[ids.clamp(0, rows - 1)].to(self.dtype) * ok
+
         if self.cfg.family == "audio":
             if tokens.dim() != 3 or tokens.shape[-1] != self.cfg.num_codebooks:
                 raise ValueError(f"{self.cfg.name} takes (B, S, "
@@ -120,22 +131,19 @@ class CausalLM(CastParams):
             x = torch.zeros(tokens.shape[:2] + (self.cfg.d_model,), dtype=self.dtype,
                             device=self.device)
             for kb in range(self.cfg.num_codebooks):
-                x = x + self.embed[kb][tokens[..., kb]].to(self.dtype)
+                x = x + take(self.embed[kb], tokens[..., kb])
             return x
-        if "embed" not in getattr(self, "tp_split", ()):
-            return self.embed[tokens].to(self.dtype)
-        rows = self.embed.shape[0]
-        ids = tokens - self.tp.m * rows
-        ok = ((ids >= 0) & (ids < rows)).to(self.dtype)[..., None]
-        return self.embed[ids.clamp(0, rows - 1)].to(self.dtype) * ok
+        return take(self.embed, tokens)
 
     def _prefix_len(self) -> int:
         return self.cfg.prefix_tokens if self.cfg.family == "vlm" else 0
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, D) -> float32 logits (B, S, V) over the rank's vocabulary
-        rows (all of them where the vocabulary does not split), or (B, S,
-        K, V) for audio; the final softcap applied (elementwise)."""
+        rows (all of them where the vocabulary does not split), or for
+        audio (B, S, K', V') over the rank's block of the (K, V) codebook
+        grid (:meth:`_codebook_block`); the final softcap applied
+        (elementwise)."""
         dt = x.dtype
         audio = self.cfg.family == "audio"
         if self.cfg.tie_embeddings:
@@ -145,13 +153,27 @@ class CausalLM(CastParams):
         else:
             logits = x @ self.cast("lm_head", dt)
             if audio:
-                logits = logits.reshape(x.shape[:2] + (self.cfg.num_codebooks,
-                                                       self.cfg.vocab_size))
+                cols, v = logits.shape[-1], self.cfg.vocab_size
+                logits = logits.reshape(x.shape[:2] + ((cols // v, v) if cols >= v
+                                                       else (1, cols)))
         logits = logits.float()
         if self.cfg.final_softcap is not None:
             cap = self.cfg.final_softcap
             logits = cap * torch.tanh(logits / cap)
         return logits
+
+    def _codebook_block(self) -> tuple[int, int]:
+        """Audio: (first codebook, first vocabulary id) of this rank's
+        block of logits.  A split untied head (D, K V) holds codebook-major
+        columns [m K V/M, (m+1) K V/M): whole codebooks, or a part of one;
+        a split tied table holds vocabulary rows [m V/M, (m+1) V/M) of
+        every codebook."""
+        if not self._vocab_split():
+            return 0, 0
+        if self.cfg.tie_embeddings:
+            return 0, self.tp.m * self.embed.shape[-2]
+        start = self.tp.m * self.lm_head.shape[1]
+        return start // self.cfg.vocab_size, start % self.cfg.vocab_size
 
     def _final_norm(self, x):
         return rms_norm(x, self.final_norm, self.cfg.norm_eps,
@@ -165,22 +187,23 @@ class CausalLM(CastParams):
     def forward_hidden(self, tokens: torch.Tensor, prefix_embeds=None):
         """The stack's normed output before unembedding: (x (B, S, D), its
         sequence shard across "model" ranks; aux)."""
-        xs, auxs, _ = forward_hidden_ranks([self], [tokens], prefix_embeds)
+        xs, auxs, _ = forward_hidden_ranks([self], [tokens], _one(prefix_embeds))
         return xs[0], auxs[0]
 
     def forward(self, tokens: torch.Tensor, prefix_embeds=None):
         """Full forward over (B, S) tokens ((B, S, K) for audio; after
         ``prefix_embeds``, a vlm's).  Returns (logits, aux_loss).  Across
         "model" ranks the logits are the rank's vocabulary rows, (B, S,
-        V/M), as the reference shards them."""
-        logits, auxs = forward_ranks([self], [tokens], prefix_embeds)
+        V/M), as the reference shards them (audio's whole, (B, S, K, V): the
+        reference does not shard them)."""
+        logits, auxs = forward_ranks([self], [tokens], _one(prefix_embeds))
         return logits[0], auxs[0]
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, prefix_embeds=None):
         """Mean next-token cross entropy over labels >= 0 (+ the MoE aux).
         Returns (loss, {"ce", "aux"}) (:func:`loss_ranks`)."""
         check_supported(self.cfg)
-        return loss_ranks([self], [tokens], [labels], prefix_embeds)[0]
+        return loss_ranks([self], [tokens], [labels], _one(prefix_embeds))[0]
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
@@ -194,7 +217,8 @@ class CausalLM(CastParams):
         """Prompt forward + cache build.  Returns (last-token logits
         (B, 1, V), cache); across "model" ranks every rank gets the whole
         vocabulary's logits and its own cache."""
-        logits, caches = prefill_ranks([self], [tokens], max_len, cache_dtype, prefix_embeds)
+        logits, caches = prefill_ranks([self], [tokens], max_len, cache_dtype,
+                                       _one(prefix_embeds))
         return logits[0], caches[0]
 
     @torch.no_grad()
@@ -216,8 +240,13 @@ class CausalLM(CastParams):
 # --------------------------------------------------------------------------
 # the passes, over the models of the ranks of a data row in this process
 # --------------------------------------------------------------------------
+def _one(prefix_embeds):
+    """One rank's ``prefix_embeds`` as the passes take them: a list."""
+    return None if prefix_embeds is None else [prefix_embeds]
+
+
 def _seq_len(tokens: list, prefix_embeds) -> int:
-    return tokens[0].shape[1] + (0 if prefix_embeds is None else prefix_embeds.shape[1])
+    return tokens[0].shape[1] + (0 if prefix_embeds is None else prefix_embeds[0].shape[1])
 
 
 def _positions(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -230,23 +259,27 @@ def embed_ranks(models: list, tokens: list, sp: bool, prefix_embeds=None) -> lis
     table splits over "model" (each rank's lookup, then a sum over "model",
     reduce-scattered onto the sequence shards with ``sp``), else the
     lookup cut to the rank's sequence shard with ``sp``; a vlm's
-    ``prefix_embeds`` before the tokens; gemma's sqrt(d) scale."""
+    ``prefix_embeds`` (one a rank: its rows) before the tokens, entering
+    the vocab-parallel sum once (model rank 0's; the other ranks add
+    zeros, so the sum is the prefix exactly); gemma's sqrt(d) scale."""
     m0 = models[0]
-    r0 = m0.tp
+    ranks = [m.tp for m in models]
     xs = [m._lookup(t.to(m.device)) for m, t in zip(models, tokens)]
+    pres = None
     if prefix_embeds is not None:
         if m0.cfg.family != "vlm":
             raise ValueError(f"{m0.cfg.name} takes no prefix_embeds "
                              "(only the vlm family has a prefix)")
-        xs = [torch.cat([prefix_embeds.to(m.device, m.dtype), x], dim=1)
-              for m, x in zip(models, xs)]
+        pres = [p.to(m.device, m.dtype) for m, p in zip(models, prefix_embeds)]
     if "embed" in getattr(m0, "tp_split", ()):
-        xs = reduce_seq(r0.comm, xs, sp)
-    elif sp and r0.M > 1:                  # the row's rows: cut the sequence
-        from ..dist.sharding import shard
-
-        xs = [shard(x, None, "seq_act", None, rules=m.tp.rules, coords={"model": m.tp.m})
-              for m, x in zip(models, xs)]
+        if pres is not None:           # into the sum once: model rank 0's, zeros elsewhere
+            xs = [torch.cat([p if r.m == 0 else torch.zeros_like(p), x], dim=1)
+                  for p, x, r in zip(pres, xs, ranks)]
+        xs = reduce_seq(ranks[0].comm, xs, sp)
+    else:
+        if pres is not None:
+            xs = [torch.cat([p, x], dim=1) for p, x in zip(pres, xs)]
+        xs = cut_seq(xs, ranks, sp and ranks[0].M > 1)   # the row's rows: cut the sequence
     if m0.cfg.embed_scale:
         scale = torch.tensor(m0.cfg.d_model ** 0.5, dtype=m0.dtype).item()
         xs = [x * scale for x in xs]
@@ -266,32 +299,74 @@ def forward_hidden_ranks(models: list, tokens: list, prefix_embeds=None):
 
 
 def forward_ranks(models: list, tokens: list, prefix_embeds=None):
-    """Each rank's logits over the whole sequence and its vocabulary rows,
-    float32, and its aux loss."""
+    """Each rank's logits over the whole sequence and its vocabulary rows
+    (audio: whole), float32, and its aux loss."""
     xs, auxs, sp = forward_hidden_ranks(models, tokens, prefix_embeds)
     xs = gather_seq(models[0].tp.comm, xs, sp)
-    return [m._unembed(x) for m, x in zip(models, xs)], auxs
+    lg = [m._unembed(x) for m, x in zip(models, xs)]
+    return (_whole_logits(models, lg) if models[0].cfg.family == "audio" else lg), auxs
+
+
+def _whole_logits(models: list, lg: list) -> list:
+    """Each rank's logits over the whole vocabulary (every codebook for
+    audio), gathered over "model" where the head splits."""
+    m0 = models[0]
+    if not m0._vocab_split():
+        return lg
+    comm = m0.tp.comm
+    if m0.cfg.family != "audio" or m0.cfg.tie_embeddings:
+        return comm.gather(lg, -1)
+    k, v = m0.cfg.num_codebooks, m0.cfg.vocab_size          # codebook-major columns
+    return [t.reshape(t.shape[:2] + (k, v)) for t in
+            comm.gather([t.flatten(2) for t in lg], -1)]
+
+
+def _pad_codebooks(t: torch.Tensor, k0: int, k: int, fill: float) -> torch.Tensor:
+    """(B, C, K') values of codebooks k0 .. k0+K'-1 placed among all ``k``,
+    ``fill`` at the others."""
+    kl = t.shape[-1]
+    if kl == k:
+        return t
+    parts = [t.new_full(t.shape[:-1] + (n,), fill) for n in (k0, k - k0 - kl)]
+    return torch.cat([parts[0], t, parts[1]], dim=-1)
 
 
 def _chunk_ce(models: list, xs: list, labels: list) -> list:
     """(sum of the chunk's nll over labels >= 0, their count), a rank
-    each; vocab-parallel where the head splits over "model"."""
-    comm = models[0].tp.comm
+    each; vocab-parallel where the head splits over "model": each
+    codebook's maximum and log-sum-exp reduce over the ranks that hold its
+    columns (text: one codebook over all of them)."""
+    m0 = models[0]
+    comm = m0.tp.comm
     lg = [m._unembed(x) for m, x in zip(models, xs)]          # (B, C[, K], V) f32
-    if not models[0]._vocab_split():
+    if not m0._vocab_split():
         lps = [torch.log_softmax(t, dim=-1) for t in lg]
         nlls = [-lp.gather(-1, y.clamp(min=0)[..., None])[..., 0] for lp, y in zip(lps, labels)]
     else:
-        mx = comm.max([t.amax(-1) for t in lg])
-        se = comm.sum([torch.exp(t - m[..., None]).sum(-1) for t, m in zip(lg, mx)])
+        audio = m0.cfg.family == "audio"
+        k = m0.cfg.num_codebooks if audio else 1
+        if not audio:
+            lg, ys = [t[..., None, :] for t in lg], [y[..., None] for y in labels]
+        else:
+            ys = labels
+        blocks = [m._codebook_block() if audio else (0, m.tp.m * t.shape[-1])
+                  for m, t in zip(models, lg)]
+        mx = comm.max([_pad_codebooks(t.amax(-1), k0, k, -torch.inf)
+                       for t, (k0, _) in zip(lg, blocks)])
+        se = comm.sum([_pad_codebooks(torch.exp(t - m[..., k0:k0 + t.shape[-2], None]).sum(-1),
+                                      k0, k, 0.0)
+                       for t, m, (k0, _) in zip(lg, mx, blocks)])
         picks = []
-        for model, t, y in zip(models, lg, labels):
+        for t, y, (k0, v0) in zip(lg, ys, blocks):
             rows = t.shape[-1]
-            ids = y - model.tp.m * rows
+            ids = y[..., k0:k0 + t.shape[-2]] - v0
             ok = (ids >= 0) & (ids < rows)
             got = t.gather(-1, ids.clamp(0, rows - 1)[..., None])[..., 0]
-            picks.append(torch.where(ok, got, torch.zeros_like(got)))
+            picks.append(_pad_codebooks(torch.where(ok, got, torch.zeros_like(got)), k0, k,
+                                        0.0))
         nlls = [torch.log(s) + m - g for s, m, g in zip(se, mx, comm.sum(picks))]
+        if not audio:
+            nlls = [t[..., 0] for t in nlls]
     out = []
     for nll, y in zip(nlls, labels):
         lw = (y >= 0).float()
@@ -341,24 +416,25 @@ def loss_ranks(models: list, tokens: list, labels: list, prefix_embeds=None) -> 
 def _full_logits(models: list, xs: list) -> list:
     """Each rank's last-position stream -> logits over the whole vocabulary
     (gathered over "model"), so every rank samples the same token."""
-    lg = [m._unembed(m._final_norm(x)) for m, x in zip(models, xs)]
-    return models[0].tp.comm.gather(lg, -1) if models[0]._vocab_split() else lg
+    return _whole_logits(models, [m._unembed(m._final_norm(x)) for m, x in zip(models, xs)])
 
 
 def prefill_ranks(models: list, tokens: list, max_len: int, cache_dtype=torch.bfloat16,
                   prefix_embeds=None):
     """Prompt forward + cache build: (last-position logits (B, 1, V) on
-    every rank, each rank's cache)."""
+    every rank, each rank's cache).  Parameters outside the stack's FSDP
+    units (the root's: the embedding and head, zamba2's shared block and
+    its LoRA) are gathered for the whole call."""
     m0 = models[0]
     s = _seq_len(tokens, prefix_embeds)
     sp = s % m0.tp.M == 0
     with unsharded(*models):
         xs = embed_ranks(models, tokens, sp, prefix_embeds)
-    xs, caches = stack_prefill([m.layers for m in models], xs, m0.cfg, _positions(xs[0], s),
-                               max_len, cache_dtype, m0._prefix_len(), sp)
-    # the last position is on rank M-1 of a split sequence
-    last = [t[:, -1:] for t in gather_seq(m0.tp.comm, [x[:, -1:] for x in xs], sp)]
-    with unsharded(*models):
+        xs, caches = stack_prefill([m.layers for m in models], xs, m0.cfg,
+                                   _positions(xs[0], s), max_len, cache_dtype,
+                                   m0._prefix_len(), sp)
+        # the last position is on rank M-1 of a split sequence
+        last = [t[:, -1:] for t in gather_seq(m0.tp.comm, [x[:, -1:] for x in xs], sp)]
         return _full_logits(models, last), caches
 
 
@@ -367,7 +443,6 @@ def decode_ranks(models: list, tokens: list, caches: list, index: int):
     stream whole on every rank: (logits (B, 1, V) on every rank, caches)."""
     with unsharded(*models):
         xs = embed_ranks(models, tokens, False)
-    xs, caches = stack_decode([m.layers for m in models], xs, caches, int(index),
-                              models[0].cfg)
-    with unsharded(*models):
+        xs, caches = stack_decode([m.layers for m in models], xs, caches, int(index),
+                                  models[0].cfg)
         return _full_logits(models, xs), caches

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.comm import SOLO, cut_seq, gather_seq, reduce_seq
 from .layers import CastParams, empty_param, param_init, rms_norm
 
 LORA_R = 64          # rank of the data-dependent decay's low-rank map
@@ -62,10 +63,6 @@ class TimeMix(CastParams):
         self.w0.fill_(-2.0)
         self.ln_scale.fill_(1.0)
 
-    def forward(self, x, state=None, x_prev=None):
-        return time_mix(self.weights(x.dtype, keep=TMIX_RAW), x, self.head_dim,
-                        state, x_prev)
-
 
 class ChannelMix(CastParams):
     """``wr`` (d, d), ``wk`` (d, d_ff), ``wv`` (d_ff, d), ``mix`` (2, d)."""
@@ -83,9 +80,6 @@ class ChannelMix(CastParams):
         for name in ("wr", "wk", "wv"):
             param_init(getattr(self, name), generator)
         self.mix.fill_(0.5)
-
-    def forward(self, x, x_prev=None):
-        return channel_mix(self.weights(x.dtype), x, x_prev)
 
 
 def _shifted(x: torch.Tensor, x_prev):
@@ -163,6 +157,83 @@ def wkv6_steps(r, k, v, w, u, state):
     return torch.stack(outs, dim=1), state
 
 
+def _mode(p: dict, d: int, head_dim: int, r) -> str:
+    """How rank ``r`` holds the time mix (``p``: its weights): ``"heads"``
+    (its H/M heads: ``wk``/``wv`` split on whole heads' columns; all of
+    them at M = 1), ``"cols"`` (a column slice of ``wk``/``wv`` that cuts
+    a head: the projections are gathered over "model" and every head
+    computed) or ``"whole"`` (the leaves unsplit)."""
+    if r.M == 1:
+        return "heads"
+    if p["wk"].shape[1] == d:
+        return "whole"
+    return "heads" if (d // head_dim) % r.M == 0 else "cols"
+
+
+def time_mix_ranks(ps: list, xs: list, head_dim: int, states: list, x_prevs: list,
+                   ranks: list, sp: bool = False):
+    """RWKV6 time mix of each rank of a data row (``ps``: its weights, as
+    :func:`time_mix` takes them; ``wk``/``wv`` its column shard and ``wo``
+    its row shard under the rules, the other leaves whole).  ``xs``: the
+    normed streams (sequence shards with ``sp``: gathered first, so that
+    the token shift sees its neighbour); ``states``: each rank's WKV state
+    (its heads, or all of them where they do not split) or None;
+    ``x_prevs``: the whole shift carries or None.  A rank computes its own
+    heads (every head where a head is cut) on the whole sequence: r, g and
+    the decay read the heads' columns of their whole leaves, the WKV scan
+    and the per-head group norm run on those heads, and ``wo``'s partial
+    products are reduced over "model" (reduce-scattered onto the sequence
+    shards with ``sp``).  Returns (outs, [(state, x_last)])."""
+    comm = ranks[0].comm
+    xs = gather_seq(comm, xs, sp)
+    b, s, d = xs[0].shape
+    mode = _mode(ps[0], d, head_dim, ranks[0])
+    mixed, ks, vs = [], [], []
+    for p, x, x_prev in zip(ps, xs, x_prevs):
+        xw_, xsh = _shifted(x, x_prev)
+        mix = p["mix"]
+        mixed.append([xw_ + mix[i] * (xsh - xw_) for i in range(5)])
+        ks.append(_mm(mixed[-1][1], p["wk"]))
+        vs.append(_mm(mixed[-1][2], p["wv"]))
+    if mode == "cols":
+        ks, vs = comm.gather(ks, -1), comm.gather(vs, -1)
+    f32 = torch.float32
+    outs, carries = [], []
+    for p, x, (xr, _, _, xg, xw), k, v, state, r in zip(ps, xs, mixed, ks, vs, states,
+                                                        ranks):
+        own = d // r.M
+        cols = slice(r.m * own, (r.m + 1) * own) if mode == "heads" else slice(None)
+        h = k.shape[-1] // head_dim
+        dt = x.dtype
+        rr = _mm(xr, p["wr"][:, cols]).reshape(b, s, h, head_dim).to(f32)
+        k = k.reshape(b, s, h, head_dim).to(f32)
+        v = v.reshape(b, s, h, head_dim).to(f32)
+        g = F.silu(_mm(xg, p["wg"][:, cols]))
+        w = decay({"wa": p["wa"], "w0": p["w0"][cols], "wb": p["wb"][:, cols]},
+                  xw).reshape(b, s, h, head_dim)
+        u = p["u"][cols].float().reshape(h, head_dim)
+        if state is None:
+            state = torch.zeros(b, h, head_dim, head_dim, device=x.device)
+        if s > WKV_CHUNK and s % WKV_CHUNK == 0:
+            o, state = wkv6_chunked(rr, k, v, w, u, state)
+        else:
+            o, state = wkv6_steps(rr, k, v, w, u, state)
+
+        # per-head group norm
+        mean = o.mean(-1, keepdim=True)
+        var = o.var(-1, unbiased=False, keepdim=True)
+        scale = p["ln_scale"][r.m * h:(r.m + 1) * h] if mode == "heads" else p["ln_scale"]
+        o = (o - mean) * torch.rsqrt(var + 1e-5) * scale
+        o = o.reshape(b, s, h * head_dim).to(dt) * g
+        if mode == "cols":                     # wo's rows: this rank's columns of o
+            o = o[..., r.m * own:(r.m + 1) * own]
+        outs.append(_mm(o, p["wo"]))
+        carries.append((state, x[:, -1]))
+    if mode == "whole":
+        return cut_seq(outs, ranks, sp), carries
+    return reduce_seq(comm, outs, sp), carries
+
+
 def time_mix(p: dict, x: torch.Tensor, head_dim: int, state=None, x_prev=None):
     """RWKV6 time mix.  x: (B, S, D).  Returns (out, (state, x_last)).
 
@@ -170,43 +241,70 @@ def time_mix(p: dict, x: torch.Tensor, head_dim: int, state=None, x_prev=None):
     rest (:data:`TMIX_RAW`) in the parameter dtype.  ``state``: the (B, H,
     K, V) float32 WKV state carried in (zeros when None); ``x_prev``: the
     token-shift carry (B, D)."""
-    b, s, d = x.shape
-    h = d // head_dim
-    dt = x.dtype
-    xw_, xs = _shifted(x, x_prev)
-    mix = p["mix"]
-    xr, xk, xv, xg, xw = (xw_ + mix[i] * (xs - xw_) for i in range(5))
+    (out,), (carry,) = time_mix_ranks([p], [x], head_dim, [state], [x_prev], [SOLO])
+    return out, carry
 
-    f32 = torch.float32
-    r = _mm(xr, p["wr"]).reshape(b, s, h, head_dim).to(f32)
-    k = _mm(xk, p["wk"]).reshape(b, s, h, head_dim).to(f32)
-    v = _mm(xv, p["wv"]).reshape(b, s, h, head_dim).to(f32)
-    g = F.silu(_mm(xg, p["wg"]))
-    w = decay(p, xw).reshape(b, s, h, head_dim)
-    u = p["u"].float().reshape(h, head_dim)
-    if state is None:
-        state = torch.zeros(b, h, head_dim, head_dim, device=x.device)
-    if s > WKV_CHUNK and s % WKV_CHUNK == 0:
-        o, state = wkv6_chunked(r, k, v, w, u, state)
-    else:
-        o, state = wkv6_steps(r, k, v, w, u, state)
 
-    # per-head group norm
-    mean = o.mean(-1, keepdim=True)
-    var = o.var(-1, unbiased=False, keepdim=True)
-    o = (o - mean) * torch.rsqrt(var + 1e-5) * p["ln_scale"]
-    o = o.reshape(b, s, d).to(dt) * g
-    return _mm(o, p["wo"]), (state, x[:, -1])
+def channel_mix_ranks(ps: list, xs: list, x_prevs: list, ranks: list, sp: bool = False):
+    """RWKV6 channel mix of each rank (``ps``: its weights in x's dtype;
+    ``wk`` split on its ff columns and ``wv`` (d_ff, d) on its output
+    columns under the rules, ``wr`` whole).  Over the gathered sequence a
+    rank takes relu(xk wk)^2 on its ff slice, gathers it over "model" (the
+    reference's ``kk: ("batch", None, "ff")``), multiplies by its output
+    columns of ``wv`` and gates them by sigmoid(xr wr) on the same columns;
+    the columns are then gathered and each rank keeps its sequence shard
+    with ``sp``.  Returns (outs, x_lasts)."""
+    comm = ranks[0].comm
+    xs = gather_seq(comm, xs, sp)
+    d = xs[0].shape[-1]
+    split_ff = ps[0]["wk"].shape[1] != ps[0]["wv"].shape[0]
+    split_out = ps[0]["wv"].shape[1] != d
+    kks, xrs = [], []
+    for p, x, x_prev in zip(ps, xs, x_prevs):
+        xw_, xsh = _shifted(x, x_prev)
+        mix = p["mix"]
+        xk = xw_ + mix[0] * (xsh - xw_)
+        xrs.append(xw_ + mix[1] * (xsh - xw_))
+        kks.append(torch.square(torch.relu(_mm(xk, p["wk"]))))
+    if split_ff:
+        kks = comm.gather(kks, -1)
+    outs = []
+    for p, xr, kk, r in zip(ps, xrs, kks, ranks):
+        own = p["wv"].shape[1]
+        wr = p["wr"][:, r.m * own:(r.m + 1) * own] if split_out else p["wr"]
+        outs.append(torch.sigmoid(_mm(xr, wr)) * _mm(kk, p["wv"]))
+    if split_out:
+        outs = comm.gather(outs, -1)
+    return cut_seq(outs, ranks, sp), [x[:, -1] for x in xs]
 
 
 def channel_mix(p: dict, x: torch.Tensor, x_prev=None):
     """RWKV6 channel mix; ``p`` in x's dtype.  Returns (out, x_last)."""
-    xw_, xs = _shifted(x, x_prev)
-    mix = p["mix"]
-    xk = xw_ + mix[0] * (xs - xw_)
-    xr = xw_ + mix[1] * (xs - xw_)
-    kk = torch.square(torch.relu(_mm(xk, p["wk"])))
-    return torch.sigmoid(_mm(xr, p["wr"])) * _mm(kk, p["wv"]), x[:, -1]
+    (out,), (last,) = channel_mix_ranks([p], [x], [x_prev], [SOLO])
+    return out, last
+
+
+def rwkv_ranks(layers: list, xs: list, states: list, sp: bool = False):
+    """One rwkv6 layer of each rank of a data row (its stream: its
+    sequence shard with ``sp``; ``states``: each rank's ``{"wkv",
+    "tshift1", "tshift2"}`` or None).  Returns (streams, new states)."""
+    l0 = layers[0]
+    ranks = [lay.tp for lay in layers]
+    sts = [st or {} for st in states]
+    hs = [rms_norm(x, lay.norm1, l0.norm_eps) for lay, x in zip(layers, xs)]
+    tmix = l0.block["tmix"]
+    atts, carries = time_mix_ranks(
+        [lay.block["tmix"].weights(h.dtype, keep=TMIX_RAW) for lay, h in zip(layers, hs)],
+        hs, tmix.head_dim, [st.get("wkv") for st in sts], [st.get("tshift1") for st in sts],
+        ranks, sp)
+    xs = [x + a for x, a in zip(xs, atts)]
+    hs = [rms_norm(x, lay.norm2, l0.norm_eps) for lay, x in zip(layers, xs)]
+    ffs, lasts = channel_mix_ranks([lay.block["cmix"].weights(h.dtype) for lay, h in
+                                    zip(layers, hs)], hs, [st.get("tshift2") for st in sts],
+                                   ranks, sp)
+    return ([x + f for x, f in zip(xs, ffs)],
+            [{"wkv": wkv, "tshift1": xl1, "tshift2": xl2}
+             for (wkv, xl1), xl2 in zip(carries, lasts)])
 
 
 class RWKVLayer(nn.Module):
@@ -216,7 +314,7 @@ class RWKVLayer(nn.Module):
     def __init__(self, d_model: int, d_ff: int, head_dim: int, norm_eps: float, *,
                  device=None, dtype=torch.float32):
         super().__init__()
-        self.norm_eps = norm_eps
+        self.norm_eps, self.tp = norm_eps, SOLO
         self.block = nn.ModuleDict({
             "tmix": TimeMix(d_model, head_dim, device=device, dtype=dtype),
             "cmix": ChannelMix(d_model, d_ff, device=device, dtype=dtype)})
@@ -230,13 +328,9 @@ class RWKVLayer(nn.Module):
         self.norm1.fill_(1.0)
         self.norm2.fill_(1.0)
 
-    def forward(self, x, state=None):
-        """x: (B, S, D); ``state``: None (a fresh sequence) or ``{"wkv",
-        "tshift1", "tshift2"}``.  Returns (x, new state)."""
-        st = state or {}
-        att, (wkv, xl1) = self.block["tmix"](rms_norm(x, self.norm1, self.norm_eps),
-                                             st.get("wkv"), st.get("tshift1"))
-        x = x + att
-        ff, xl2 = self.block["cmix"](rms_norm(x, self.norm2, self.norm_eps),
-                                     st.get("tshift2"))
-        return x + ff, {"wkv": wkv, "tshift1": xl1, "tshift2": xl2}
+    def forward(self, x, state=None, sp: bool = False):
+        """x: (B, S, D) (this rank's sequence shard with ``sp``); ``state``:
+        None (a fresh sequence) or ``{"wkv", "tshift1", "tshift2"}``.
+        Returns (x, new state)."""
+        (x,), (st,) = rwkv_ranks([self], [x], [state], sp)
+        return x, st

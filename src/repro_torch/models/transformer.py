@@ -31,13 +31,15 @@ layer's new state into the cache it is given.  A vlm's prefix
 (``prefix_len``) attends bidirectionally in forward and prefill; decode
 is causal.  The audio family's stack is the dense one.
 
-The dense and moe passes (blocks, local/global pairs, the stacks) take
-one entry per rank of a data row that this process runs: an unsharded
-model is one rank (``repro_torch.dist.comm.SOLO``, its collectives the
-identity), a model across "model" ranks M of them (``repro_torch.dist.
-tp``), each block holding its rank's heads and ff and each stream its
-sequence shard where the sequence splits (train and prefill; whole in
-decode).  The ssm and hybrid families run as one rank.
+Every pass (blocks, local/global pairs, rwkv6 and Mamba2 layers, the
+shared block, the stacks) takes one entry per rank of a data row that
+this process runs: an unsharded model is one rank (``repro_torch.dist.
+comm.SOLO``, its collectives the identity), a model across "model" ranks
+M of them (``repro_torch.dist.tp``), each block holding its rank's heads
+and ff and each stream its sequence shard where the sequence splits
+(train and prefill; whole in decode).  Mamba2's leaves are whole: a rank
+runs the whole layer on the gathered sequence and keeps its positions;
+in decode it steps its heads of the ``ssm`` state.
 
 Where autograd records, ``stack_forward`` runs each scanned body of the
 reference under ``torch.utils.checkpoint`` (its ``jax.checkpoint``): a
@@ -61,19 +63,16 @@ from ..dist.comm import SOLO
 from .attention import (
     Attention,
     AttnConfig,
-    attention,
-    attention_decode,
     attention_decode_ranks,
-    attention_prefill,
     attention_ranks,
     init_kv_cache,
 )
 from .config import ModelConfig
 from .layers import CastParams, empty_param, param_init, rms_norm
-from .mamba2 import Mamba2
+from .mamba2 import RAW, Mamba2, mamba2_ranks
 from .mlp import MLP, mlp_ranks
 from .moe import MoE, moe_ranks
-from .rwkv6 import RWKVLayer
+from .rwkv6 import RWKVLayer, rwkv_ranks
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 LORA_RANK = 128      # zamba2's per-invocation adapter rank
@@ -348,11 +347,12 @@ def _block_groups(layers: list) -> list:
 
 
 class MambaLayer(nn.Module):
-    """A Mamba2 block under its pre-norm, with the residual."""
+    """A Mamba2 block under its pre-norm, with the residual.  ``tp`` as
+    :class:`DenseBlock`'s."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, SOLO
         self.ssm = Mamba2(cfg.d_model, cfg.ssm, device=device, dtype=dtype)
         self.norm = empty_param(cfg.d_model, device=device, dtype=dtype)
 
@@ -361,9 +361,30 @@ class MambaLayer(nn.Module):
         self.ssm.reset_parameters(generator)
         self.norm.fill_(1.0)
 
-    def forward(self, x, state=None):
-        y, new_state = self.ssm(rms_norm(x, self.norm, self.cfg.norm_eps), state)
-        return x + y, new_state
+    def forward(self, x, state=None, sp: bool = False):
+        (x,), (st,) = mamba_layer_ranks([self], [x], [state], sp)
+        return x, st
+
+
+def mamba_layer_ranks(layers: list, xs: list, states: list, sp: bool = False):
+    """A Mamba2 layer of each rank (``models.mamba2.mamba2_ranks``): its
+    pre-norm on the rank's stream, the layer, the residual."""
+    l0 = layers[0]
+    hs = [rms_norm(x, lay.norm, l0.cfg.norm_eps) for lay, x in zip(layers, xs)]
+    ys, sts = mamba2_ranks([lay.ssm.weights(h.dtype, keep=RAW) for lay, h in zip(layers, hs)],
+                           hs, l0.cfg.ssm, l0.cfg.d_model, states, [lay.tp for lay in layers],
+                           sp)
+    return [x + y for x, y in zip(xs, ys)], sts
+
+
+def _layer_call(layers: list, fn, xs: list, states: list, sp: bool):
+    """A recurrent layer of each rank: one rank's through the module (an
+    FSDP unit gathers its parameters around the call), several ranks' in
+    one call of ``fn``."""
+    if len(layers) == 1:
+        x, st = layers[0](xs[0], states[0], sp=sp)
+        return [x], [st]
+    return fn(layers, xs, states, sp)
 
 
 class LoraDelta(CastParams):
@@ -381,8 +402,11 @@ class LoraDelta(CastParams):
         param_init(self.a, generator)
         self.b.zero_()
 
-    def delta(self, dtype: torch.dtype) -> torch.Tensor:
-        return self.cast("a", dtype) @ self.cast("b", dtype)
+    def delta(self, dtype: torch.dtype, cols: slice | None = None) -> torch.Tensor:
+        """a @ b, or with ``cols`` a @ b[:, cols] (the columns of a rank's
+        shard of the projection it adapts)."""
+        b = self.cast("b", dtype)
+        return self.cast("a", dtype) @ (b if cols is None else b[:, cols])
 
 
 class Lora(nn.ModuleDict):
@@ -403,11 +427,14 @@ class SharedAttn(nn.Module):
     """zamba2's single shared attention + MLP block.  Its input is
     concat([x, x0]) (x0 the embedding stream), so q/k/v read 2 d_model and
     ``wo`` maps back to d_model; each invocation folds its LoRA deltas into
-    q/k/v in the compute dtype (the reference's ``_lora_weights``)."""
+    q/k/v in the compute dtype (the reference's ``_lora_weights``).
+    Across "model" ranks it runs as a dense block does (``tp``): q/k/v on
+    the rank's heads, ``wo`` on their rows, the MLP over ff; the LoRA
+    leaves stay whole and a rank folds the columns of its heads."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, SOLO
         d = cfg.d_model
         kw = dict(device=device, dtype=dtype)
         self.attn = Attention(dataclasses.replace(attn_cfg_for(cfg, None), d_model=2 * d),
@@ -424,26 +451,28 @@ class SharedAttn(nn.Module):
         self.norm_attn.fill_(1.0)
         self.norm_mlp.fill_(1.0)
 
-    def _residual(self, x, x0, lora: Lora, attend):
-        eps = self.cfg.norm_eps
-        h2 = rms_norm(torch.cat([x, x0], dim=-1), self.norm_attn, eps)
-        p = self.attn.weights(h2.dtype)
+
+def shared_block(shareds: list, xs: list, x0s: list, loras: list, attend, sp: bool) -> list:
+    """zamba2's shared block of each rank (``attend`` as :func:`dense_block`'s)
+    with one invocation's LoRA (``loras``: each rank's)."""
+    s0 = shareds[0]
+    eps = s0.cfg.norm_eps
+    h2s = [rms_norm(torch.cat([x, x0], dim=-1), s.norm_attn, eps)
+           for s, x, x0 in zip(shareds, xs, x0s)]
+    ps = []
+    for s, lora, h2 in zip(shareds, loras, h2s):
+        p = s.attn.weights(h2.dtype)
         for name in ("q", "k", "v"):
-            p["w" + name] = p["w" + name] + lora[name].delta(h2.dtype)
-        x = x + attend(h2, p)
-        return x + self.mlp(rms_norm(x, self.norm_mlp, eps))
-
-    def forward(self, x, x0, lora: Lora, acfg: AttnConfig, positions):
-        return self._residual(x, x0, lora,
-                              lambda h, p: attention(p, h, acfg, positions))
-
-    def prefill(self, x, x0, lora: Lora, acfg: AttnConfig, positions, cache: dict):
-        return self._residual(
-            x, x0, lora, lambda h, p: attention_prefill(p, h, acfg, positions, cache))
-
-    def decode(self, x, x0, lora: Lora, cache: dict, index: int, acfg: AttnConfig):
-        return self._residual(
-            x, x0, lora, lambda h, p: attention_decode(p, h, cache, index, acfg))
+            width, full = p["w" + name].shape[1], lora[name].b.shape[1]
+            cols = None if width == full else slice(s.tp.m * width, (s.tp.m + 1) * width)
+            p["w" + name] = p["w" + name] + lora[name].delta(h2.dtype, cols)
+        ps.append(p)
+    xs = [x + a for x, a in zip(xs, attend(h2s, ps))]
+    hs = [rms_norm(x, s.norm_mlp, eps) for s, x in zip(shareds, xs)]
+    split = "up" in getattr(s0.mlp, "tp_split", ())
+    m = mlp_ranks([s.mlp.weights(h.dtype) for s, h in zip(shareds, hs)], hs, s0.mlp.kind,
+                  [s.tp for s in shareds], sp, split)
+    return [x + t for x, t in zip(xs, m)]
 
 
 # ==========================================================================
@@ -496,34 +525,39 @@ def _pair_cfgs(cfg: ModelConfig, prefix_len: int = 0):
             attn_cfg_for(cfg, None, prefix_len))
 
 
-def _hybrid_group(layers: nn.ModuleDict, cfg: ModelConfig, g: int, x, x0,
-                  acfg: AttnConfig, positions):
-    """Group ``g`` of zamba2's stack: its Mamba2 layers, then the shared
-    block with the group's LoRA (the reference's ``gbody``)."""
+def _hybrid_group(layers: list, cfg: ModelConfig, g: int, xs: list, x0s: list,
+                  acfg: AttnConfig, positions, sp: bool = False) -> list:
+    """Group ``g`` of zamba2's stack of each rank: its Mamba2 layers, then
+    the shared block with the group's LoRA (the reference's ``gbody``)."""
+    n = len(layers)
     for i in _group_layers(cfg, g):
-        x, _ = layers["mamba"][i](x)
-    return layers["shared"](x, x0, layers["lora"][g], acfg, positions)
+        xs, _ = _layer_call([lay["mamba"][i] for lay in layers], mamba_layer_ranks, xs,
+                            [None] * n, sp)
+    shareds = [lay["shared"] for lay in layers]
+    return shared_block(shareds, xs, x0s, [lay["lora"][g] for lay in layers],
+                        _attend_fn(shareds, acfg, positions, sp), sp)
 
 
 def stack_forward(layers: list, xs: list, cfg: ModelConfig, positions,
                   prefix_len: int = 0, sp: bool = False):
     """Run the full layer stack of each rank, each body checkpointed (the
-    module docstring).  ``layers``/``xs``: one a rank (one rank outside
-    the dense and moe families), xs (B, S, D), or (B, S/M, D) with ``sp``;
-    ``positions``: the whole sequence's.  Returns (xs, auxs): each rank's
-    stream and the sum of its MoE layers' aux losses, else 0."""
+    module docstring).  ``layers``/``xs``: one a rank, xs (B, S, D), or
+    (B, S/M, D) with ``sp``; ``positions``: the whole sequence's.  Returns
+    (xs, auxs): each rank's stream and the sum of its MoE layers' aux
+    losses, else 0."""
     auxs = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     acfg = attn_cfg_for(cfg, None, prefix_len)
-    if cfg.family in ("ssm", "hybrid"):
-        (layers,), (x,) = layers, xs
-        if cfg.family == "ssm":
-            for layer in layers:
-                x, _ = _remat(layer, x)
-        else:
-            x0 = x
-            for g in range(_groups(cfg)):
-                x = _remat(_hybrid_group, layers, cfg, g, x, x0, acfg, positions)
-        return [x], auxs
+    n = len(layers)
+    if cfg.family == "ssm":
+        for i in range(len(layers[0])):
+            xs, _ = _remat(_layer_call, [lay[i] for lay in layers], rwkv_ranks, xs,
+                           [None] * n, sp)
+        return xs, auxs
+    if cfg.family == "hybrid":
+        x0s = xs
+        for g in range(_groups(cfg)):
+            xs = _remat(_hybrid_group, layers, cfg, g, xs, x0s, acfg, positions, sp)
+        return xs, auxs
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg, prefix_len)
         for i in range(len(layers[0])):
@@ -545,8 +579,10 @@ def _local_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> dict:
-    """Decode state for one-token serve steps, stacked over layers."""
+               device=None, state_heads: int | None = None) -> dict:
+    """Decode state for one-token serve steps, stacked over layers;
+    ``state_heads``: the heads of rwkv6's ``wkv`` or Mamba2's ``ssm`` state
+    (default all)."""
     check_supported(cfg)
 
     def zeros(*shape, dt=dtype):
@@ -563,13 +599,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
         return out
     if cfg.family == "ssm":
         d, hd, n = cfg.d_model, cfg.ssm.head_dim, cfg.n_layers
-        return {"wkv": zeros(n, batch, d // hd, hd, hd, dt=torch.float32),
+        return {"wkv": zeros(n, batch, state_heads or d // hd, hd, hd, dt=torch.float32),
                 "tshift1": zeros(n, batch, d), "tshift2": zeros(n, batch, d)}
     if cfg.family == "hybrid":
         sc = cfg.ssm
         d_inner = sc.expand * cfg.d_model
-        return {"ssm": zeros(cfg.n_layers, batch, d_inner // sc.head_dim, sc.d_state,
-                             sc.head_dim, dt=torch.float32),
+        return {"ssm": zeros(cfg.n_layers, batch, state_heads or d_inner // sc.head_dim,
+                             sc.d_state, sc.head_dim, dt=torch.float32),
                 "conv": zeros(cfg.n_layers, batch, sc.d_conv - 1, d_inner + 2 * sc.d_state),
                 "attn_kv": kv(_groups(cfg), max_len)}
     if cfg.layer_pattern == "local_global":
@@ -579,15 +615,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return {"layers": kv(cfg.n_layers, max_len)}
 
 
+def state_heads(layers: nn.Module, cfg: ModelConfig) -> int | None:
+    """The heads of a rank's recurrent decode state (``cache_specs``):
+    rwkv6's ``wkv`` holds the rank's heads where ``wk`` splits on whole
+    heads, Mamba2's ``ssm`` where its heads divide by M; else all (None)."""
+    if cfg.family == "ssm":
+        layer = layers[0]
+        h = cfg.d_model // cfg.ssm.head_dim
+        split = "wk" in getattr(layer.block["tmix"], "tp_split", ())
+        return h // layer.tp.M if split and h % layer.tp.M == 0 else None
+    if cfg.family == "hybrid":
+        tp = layers["mamba"][0].tp
+        nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        return nh // tp.M if nh % tp.M == 0 else None
+    return None
+
+
 def rank_cache(layers: nn.Module, cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """A rank's decode cache: :func:`init_cache` with the KV heads its
-    blocks hold (:func:`kv_heads`; all of them at M = 1)."""
-    block = next((m for m in layers.modules() if isinstance(m, (DenseBlock, MoEBlock))),
-                 None)
+    blocks hold (:func:`kv_heads`; all of them at M = 1) and the heads of
+    its recurrent states (:func:`state_heads`)."""
+    block = next((m for m in layers.modules()
+                  if isinstance(m, (DenseBlock, MoEBlock, SharedAttn))), None)
+    heads = state_heads(layers, cfg)
     if block is not None:
         cfg = dataclasses.replace(cfg, n_kv_heads=kv_heads(block))
-    return init_cache(cfg, batch, max_len, dtype, device)
+    return init_cache(cfg, batch, max_len, dtype, device, heads)
 
 
 def _layer_cache(group: dict, i: int) -> dict:
@@ -610,25 +664,30 @@ def stack_prefill(layers: list, xs: list, cfg: ModelConfig, positions,
     leave them (float32 recurrent states, the token-shift carries and the
     conv inputs in the compute dtype), as the reference's prefill does."""
     acfg = attn_cfg_for(cfg, None, prefix_len)
-    if cfg.family == "ssm":
-        (layers,), (x,) = layers, xs
-        states = []
-        for layer in layers:
-            x, st = layer(x)
-            states.append(st)
-        return [x], [_stacked(states)]
-    if cfg.family == "hybrid":
-        (layers,), (x,) = layers, xs
-        x0, states = x, []
-        cache = {"attn_kv": init_cache(cfg, x.shape[0], max_len, cache_dtype,
-                                       x.device)["attn_kv"]}
-        for g, lora in enumerate(layers["lora"]):
+    n = len(layers)
+    if cfg.family in ("ssm", "hybrid"):
+        states = [[] for _ in layers]
+        if cfg.family == "ssm":
+            for i in range(len(layers[0])):
+                xs, sts = _layer_call([lay[i] for lay in layers], rwkv_ranks, xs,
+                                      [None] * n, sp)
+                for mine, st in zip(states, sts):
+                    mine.append(st)
+            return xs, [_stacked(mine) for mine in states]
+        x0s = xs
+        caches = [{"attn_kv": rank_cache(lay, cfg, x.shape[0], max_len, cache_dtype,
+                                         x.device)["attn_kv"]} for lay, x in zip(layers, xs)]
+        for g in range(_groups(cfg)):
             for i in _group_layers(cfg, g):
-                x, st = layers["mamba"][i](x, "final")
-                states.append(st)
-            x = layers["shared"].prefill(x, x0, lora, acfg, positions,
-                                         _layer_cache(cache["attn_kv"], g))
-        return [x], [{**_stacked(states), **cache}]
+                xs, sts = _layer_call([lay["mamba"][i] for lay in layers], mamba_layer_ranks,
+                                      xs, ["final"] * n, sp)
+                for mine, st in zip(states, sts):
+                    mine.append(st)
+            shareds = [lay["shared"] for lay in layers]
+            views = [_layer_cache(c["attn_kv"], g) for c in caches]
+            xs = shared_block(shareds, xs, x0s, [lay["lora"][g] for lay in layers],
+                              _attend_fn(shareds, acfg, positions, sp, views), sp)
+        return xs, [{**_stacked(mine), **c} for mine, c in zip(states, caches)]
     b, s = xs[0].shape[0], positions.shape[1]
     caches = [rank_cache(lay, cfg, b, max_len, cache_dtype, x.device)
               for lay, x in zip(layers, xs)]
@@ -674,22 +733,26 @@ def stack_decode(layers: list, xs: list, caches: list, index: int, cfg: ModelCon
     states ignore ``index``."""
     acfg = attn_cfg_for(cfg, None)
     if cfg.family == "ssm":
-        (layers,), (x,), (cache,) = layers, xs, caches
-        for i, layer in enumerate(layers):
-            x, st = layer(x, _layer_cache(cache, i))
-            _write(cache, i, st)
-        return [x], caches
+        for i in range(len(layers[0])):
+            xs, sts = _layer_call([lay[i] for lay in layers], rwkv_ranks, xs,
+                                  [_layer_cache(c, i) for c in caches], False)
+            for c, st in zip(caches, sts):
+                _write(c, i, st)
+        return xs, caches
     if cfg.family == "hybrid":
-        (layers,), (x,), (cache,) = layers, xs, caches
-        x0 = x
-        for g, lora in enumerate(layers["lora"]):
+        x0s = xs
+        for g in range(_groups(cfg)):
             for i in _group_layers(cfg, g):
-                x, st = layers["mamba"][i](x, {"ssm": cache["ssm"][i],
-                                               "conv": cache["conv"][i]})
-                _write(cache, i, st)
-            x = layers["shared"].decode(x, x0, lora, _layer_cache(cache["attn_kv"], g),
-                                        index, acfg)
-        return [x], caches
+                xs, sts = _layer_call([lay["mamba"][i] for lay in layers], mamba_layer_ranks,
+                                      xs, [{"ssm": c["ssm"][i], "conv": c["conv"][i]}
+                                           for c in caches], False)
+                for c, st in zip(caches, sts):
+                    _write(c, i, st)
+            shareds = [lay["shared"] for lay in layers]
+            views = [_layer_cache(c["attn_kv"], g) for c in caches]
+            xs = shared_block(shareds, xs, x0s, [lay["lora"][g] for lay in layers],
+                              _decode_fn(shareds, views, index, acfg), False)
+        return xs, caches
     if cfg.layer_pattern == "local_global":
         a_loc, a_glo = _pair_cfgs(cfg)
         for i in range(len(layers[0])):

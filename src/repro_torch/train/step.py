@@ -15,8 +15,8 @@ and ``lr``.
 
 A model across ranks (``repro_torch.dist.zero.ranked_lm``) takes its
 data row's rows of the global batch (``data.tokens.TokenPipeline(shard=d,
-num_shards=D)`` for data coordinate d of D); its gradients are the global
-batch's mean (FSDP's over "data", then ``Placement.sync_grads``), each rank
+num_shards=D, microbatches=n)`` for data coordinate d of D); its gradients
+are the global batch's mean (FSDP's over "data", then ``Placement.sync_grads``), each rank
 updates its own shards, the gradient norm counts each element once (a
 leaf held whole by several ranks is divided by their count), and
 ``loss``, ``ce`` and ``aux`` are means over the ranks (the global batch's,
@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.model import CausalLM
-from ..optim.adamw import AdamWConfig, apply_updates
+from ..optim.adamw import AdamWConfig, _local, apply_updates
 
 
 def _loss(model: CausalLM, batch: dict):
@@ -42,15 +42,20 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
                     microbatches: int = 1, compressor=None):
     """compressor: optional ``repro_torch.dist.compress.Compressor``
     applied to the grads (quantise -> dequantise, stateless) before the
-    update."""
+    update.
+
+    With ``microbatches``, the batch splits into that many contiguous
+    parts, each a backward of its own (across ranks: each rank's part i is
+    its slice of the global microbatch i, ``data.tokens.TokenPipeline(...,
+    microbatches=n)``, and FSDP reduce-scatters each microbatch's
+    gradients); the gradients are summed in float32 and divided by their
+    count, the loss is the microbatches' mean and the other metrics are the
+    last microbatch's, as the reference's.  The compressor acts on the
+    global gradient with each reference leaf's statistic
+    (``Compressor.leaf_stats``: a stacked group's over its layers, and
+    across ranks over every rank's shards)."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     place = model.placement
-    if place is not None and (compressor is not None or microbatches != 1):
-        raise ValueError(
-            "a model across ranks takes neither a compressor (its gradients are "
-            "reduce-scattered in float32 inside the backward, before a compressor "
-            f"could act) nor microbatches ({microbatches}: each backward would "
-            "reduce-scatter its own gradients; not ported)")
     group = None if place is None else place.world.get_group()
     replicas = None if place is None else {n: place.replicas(n) for n in params}
 
@@ -77,23 +82,28 @@ def make_train_step(model: CausalLM, opt_cfg: AdamWConfig,
         if microbatches == 1:
             loss, metrics, grads = grads_of(batch)
         else:
-            # split the global batch into microbatches; the grads are
-            # summed in float32 and the metrics are the last microbatch's
+            # split the batch into microbatches; the grads are summed in
+            # float32 and the metrics are the last microbatch's
             n = len(batch["tokens"])
             mb = n // microbatches
-            gsum = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for name, p in params.items()}
+            gsum = None
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 l, metrics, g = grads_of(part)
+                if gsum is None:
+                    gsum = {name: torch.zeros_like(t, dtype=torch.float32)
+                            for name, t in g.items()}
                 for name in gsum:
                     gsum[name] += g[name]
                 loss = loss + l
             grads = {name: g / microbatches for name, g in gsum.items()}
             loss = loss / microbatches
         if compressor is not None:
-            grads = compressor.roundtrip(grads)
+            stats = compressor.leaf_stats(grads, place)
+            if place is not None:
+                grads = {n: _local(g) for n, g in grads.items()}
+            grads = compressor.roundtrip(grads, stats)
         _, opt_state, opt_metrics = apply_updates(params, opt_state, grads, opt_cfg, step,
                                                   group, replicas)
         return opt_state, {"loss": loss, **metrics, **opt_metrics}

@@ -164,17 +164,38 @@ res = R.trajectory(lm, cfg, out, f"ck_{data}x{model}", resume="ck_one", rank=ran
                    ranks=world)
 if rank == 0:
     torch.save(res, out / f"ranks_{data}x{model}.pt")
+from repro_torch.dist.compress import Compressor
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import make_train_step
-for kw in ({"microbatches": 2}, {"compressor": object()}):
-    try:
-        make_train_step(lm, AdamWConfig(), **kw)
-    except ValueError:
-        continue
-    raise SystemExit(f"make_train_step across ranks took {kw}")
+# across ranks the step takes microbatches and a compressor
+# (tests/test_torch_micro_ranks.py holds them to the reference)
+make_train_step(lm, AdamWConfig(), microbatches=2, compressor=Compressor("int8"))
 dist.destroy_process_group()
 print("RANK_OK")
 """
+
+
+# ------------------------------------------ a compressor that keeps its work
+def recording_compressor(kind: str):
+    """A ``Compressor`` of ``kind`` that keeps each parameter's whole
+    uncompressed gradient and its leaf's statistic (``whole``, ``stats``;
+    gathered across ranks) and what ``roundtrip`` took and gave
+    (``seen``, ``out``)."""
+    from repro_torch.dist.compress import Compressor
+
+    class Recording(Compressor):
+        def leaf_stats(self, grads, place=None):
+            self.whole = {n: (g if place is None else place.full(n, g)).clone()
+                          for n, g in grads.items()}
+            self.stats = super().leaf_stats(grads, place)
+            return self.stats
+
+        def roundtrip(self, grads, stats=None):
+            self.seen = dict(grads)
+            self.out = super().roundtrip(grads, stats)
+            return self.out
+
+    return Recording(kind)
 
 
 # --------------------------------------- ranks for launch.train.spawn_ranks

@@ -11,9 +11,12 @@
   data row's slots.
 * The launcher: the ranked engine's greedy tokens per request equal the
   one-process engine's (float32).
-* Refusals: the ssm, hybrid, vlm and audio families across ranks name
-  ROADMAP item 6 (audio: F6) before any rank starts; a mesh that cannot
-  start (more ranks than cards) exits non-zero and serves nothing.
+* Refusals, before any rank starts: a split that cannot be made (4 query
+  heads over 8 model ranks; slots over 3 data rows) and the audio family
+  (F6); every other family serves across ranks (``tests/
+  test_torch_tp_ssm.py``, ``tests/test_torch_tp_vlm_audio.py``).  A mesh
+  that cannot start (more ranks than cards) exits non-zero and serves
+  nothing.
 """
 import os
 import subprocess
@@ -24,7 +27,7 @@ import torch
 
 import _ranks as R
 from repro_torch.configs import get_smoke
-from repro_torch.dist.zero import ranked_lm
+from repro_torch.dist import tp
 from repro_torch.launch import serve as launcher
 
 PROG = r"""
@@ -95,11 +98,19 @@ def test_ranked_engine_gives_the_unsharded_tokens(arch, mesh, capfd):
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "paligemma-3b"])
 def test_ranked_serving_refuses_other_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--data", "1",
-                       "--model", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        ranked_lm(get_smoke(arch), mesh=None)
+    """Only what cannot be split is refused: zamba2's and paligemma's 4
+    query heads over 8 model ranks (rwkv6 has no attention: its heads are
+    gathered where a column shard cuts one), 4 slots over 3 data rows, and
+    the audio family (F6)."""
+    if arch == "rwkv6-3b":
+        tp.check_tp(get_smoke(arch), 8)
+    else:
+        with pytest.raises(NotImplementedError, match="query heads do not split"):
+            launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--data", "1",
+                           "--model", "8"])
+    with pytest.raises(ValueError, match="do not split"):
+        launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--data", "3",
+                       "--model", "1", "--slots", "4"])
     with pytest.raises(NotImplementedError, match="F6"):
         launcher.main(["--arch", "musicgen-large", "--smoke", "--device", "cpu",
                        "--data", "1", "--model", "2"])

@@ -23,8 +23,9 @@ depends on which tokens share a rank.  Tolerances, as
   model's fourth step agrees with the uninterrupted other's within the
   same tolerances.
 
-Each rank also checks that the step refuses microbatches and a
-compressor across ranks.
+Each rank also builds a step with microbatches and a compressor, which
+the step takes across ranks (``tests/test_torch_micro_ranks.py`` holds
+them to the reference).
 """
 import numpy as np
 import pytest
@@ -32,8 +33,6 @@ import torch
 
 import _ranks as R
 from _train_parity import METRICS, rel
-from repro_torch.configs import get_smoke
-from repro_torch.dist.zero import ranked_lm
 from repro_torch.launch import train as launcher
 from repro_torch.models.model import CausalLM
 
@@ -121,10 +120,12 @@ def test_checkpoints_resume_across_meshes(arch, mesh, out):
 
 
 def test_refusals_before_any_rank_starts():
-    """The families not ported across ranks, a batch that does not split
-    over the data ranks, and more ranks than visible cards."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ranked_lm(get_smoke("zamba2-2.7b"), mesh=None)
+    """A split that cannot be made (4 query heads over 8 model ranks), a
+    batch that does not split over the data ranks, and more ranks than
+    visible cards."""
+    with pytest.raises(NotImplementedError, match="do not split"):
+        launcher.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--data", "1",
+                       "--model", "8", "--batch", "4"])
     with pytest.raises(ValueError, match="does not split"):
         launcher.main(["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
                        "--data", "2", "--model", "2", "--batch", "5"])

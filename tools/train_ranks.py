@@ -7,6 +7,11 @@ the launcher's own loop and rank spawner (``repro_torch.launch.train.run``,
     # four H100s: deepseek-moe-16b's 28 layers on 1 x 4 and 2 x 2, chatglm3-6b on 4 x 1
     python3 tools/train_ranks.py --arch deepseek-moe-16b --mesh 1x4 2x2
     python3 tools/train_ranks.py --arch chatglm3-6b --mesh 4x1
+    # every family; microbatches and compression on a mesh
+    python3 tools/train_ranks.py --arch rwkv6-3b --mesh 1x4 4x1
+    python3 tools/train_ranks.py --arch paligemma-3b --mesh 4x1 --microbatches 2
+    python3 tools/train_ranks.py --arch chatglm3-6b --mesh 2x2 --microbatches 2 \
+        --compress int8
     # a CPU rehearsal over gloo at smoke size
     python3 tools/train_ranks.py --arch deepseek-moe-16b --mesh 2x2 --device cpu \
         --smoke --seq 64 --warm 1 --timed 1
@@ -14,8 +19,11 @@ the launcher's own loop and rank spawner (``repro_torch.launch.train.run``,
 Per mesh, each rank builds its shard of the model from seed 0 at the
 config's published widths (depth cut only by ``--layers``), bf16 compute,
 float32 parameters and AdamW state, every scanned body checkpointed, and
-trains on ``--batch`` x ``--seq`` global tokens (the batch over "data";
-over "model" tensor, sequence and expert parallelism): ``--warm``
+trains on ``--batch`` x ``--seq`` global tokens (the batch over "data",
+in ``--microbatches`` contiguous microbatches, the gradient through
+``--compress``; over "model" tensor, sequence and expert parallelism;
+``--seq`` counts every position, a vlm's 256 prefix positions among
+them): ``--warm``
 steps, ``--timed`` steps (the launcher's per-step clock; K3's launches are
 counted over them), then one step under ``torch.profiler`` on every rank.
 Prints, per mesh, ms/step, tok/s over the global batch, the share of W x
@@ -137,13 +145,16 @@ class RankRun(NamedTuple):
     layers: int | None = None
     device: str = "cuda"
     smoke: bool = False
+    microbatches: int = 1
+    compress: str = "none"
 
     def args(self) -> argparse.Namespace:
         """The launcher's arguments for this run."""
         argv = ["--arch", self.arch, "--steps", str(self.warm + self.timed + 1),
                 "--batch", str(self.batch), "--seq", str(self.seq), "--data",
                 str(self.data), "--model", str(self.model), "--device", self.device,
-                "--log-every", "1"]
+                "--log-every", "1", "--microbatches", str(self.microbatches),
+                "--compress", self.compress]
         return launcher.parse_args(argv + ["--smoke"] * self.smoke
                                    + ["--layers", str(self.layers)] * bool(self.layers))
 
@@ -222,6 +233,40 @@ def measure_rank(run: RankRun, mesh=None) -> dict:
             "rank": 0 if mesh is None else torch.distributed.get_rank()}
 
 
+def step_digest(run: RankRun, mesh=None) -> dict:
+    """One step of ``run``'s config from seed 0 through the launcher's
+    ``build`` (its microbatches and compressor) on the pipeline's first
+    batch, as this rank of ``mesh`` or, with none, unsharded: the loss,
+    the grad norm and a SHA-256 of every parameter after the step,
+    gathered whole (rank 0's; None elsewhere)."""
+    import hashlib
+
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim.adamw import init_state
+
+    _, model, step_fn, data_cfg = launcher.build(run.args(), mesh)
+    place = model.placement
+    row, rows = (0, 1) if place is None else (place.data_rank, place.data)
+    pipe = TokenPipeline(data_cfg, shard=row, num_shards=rows, microbatches=run.microbatches)
+    _, metrics = step_fn(init_state(dict(model.named_parameters())), pipe.next(), 0)
+    tree = lm_params_to_reference(model)
+    if tree is None:
+        return None
+    digest = hashlib.sha256()
+
+    def walk(node):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key])
+            else:
+                digest.update(node[key].tobytes())
+
+    walk(tree)
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "params_sha256": digest.hexdigest()}
+
+
 def measure(run: RankRun, timeout: float = 900) -> list[dict]:
     """Every rank's :func:`measure_rank` of ``run``, in rank order."""
     return launcher.spawn_ranks(measure_rank, run.data, run.model, run.device, run,
@@ -239,6 +284,9 @@ def rank_summary(run: RankRun, results: list[dict], label: str = "") -> dict:
     step_ms = results[0]["step_ms"]
     tokens = run.batch * run.seq
     depth = f", depth cut to {cfg.n_layers} layers" if run.layers else ""
+    if run.microbatches > 1 or run.compress != "none":
+        depth += (f", {run.microbatches} microbatches, gradient compression "
+                  f"{run.compress}")
     ranks_ms = ", ".join(repr(r["step_ms"]) for r in results)
     name = label or f"ranks {run.arch} {run.data}x{run.model}"
     if run.device == "cuda":
@@ -289,13 +337,16 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress", default="none", choices=["none", "int8", "topk"])
     ap.add_argument("--timeout", type=float, default=1500)
     args = ap.parse_args(argv)
     summaries = {}
     for mesh in args.mesh:
         data, model = (int(v) for v in mesh.split("x"))
         run = RankRun(args.arch, data, model, args.batch, args.seq, args.warm, args.timed,
-                      layers=args.layers, device=args.device, smoke=args.smoke)
+                      layers=args.layers, device=args.device, smoke=args.smoke,
+                      microbatches=args.microbatches, compress=args.compress)
         results = measure(run, timeout=args.timeout)
         summary = rank_summary(run, results)
         print(summary.pop("line"), flush=True)
