@@ -255,6 +255,18 @@ Phases (any failure exits non-zero and prints no result line):
    compression, bit for bit the unsharded step with the same
    microbatches and compressor (loss, grad norm, a SHA-256 of every
    parameter after the step);
+[dryrun]. the dry-run held to the card (``repro_torch.roofline``): (a) the
+   spheres case of phase 4 counted as one slab on the meta device
+   (``ShardedLBM.count_step``), f64 and f32: K1's counted bytes must be the
+   kernels line's, and its t_memory, t_compute and bound are printed beside
+   phase 4's ms a step; (b) starcoder2-3b's train step at 2 x 4096 on one
+   card counted on the meta device (``launch.dryrun.count_cell``) and a real
+   step counted on the card under the same ``Counter``: FLOPs and bytes
+   within 1 % (every op that differs named), the counted peak within 10 %
+   of ``max_memory_allocated``; (c) one decode step of
+   ``ServeEngine(slots=4)`` on the same weights against the counted
+   decode's t_memory.  No measured step may come in under its counted bound
+   by more than ``DRYRUN_SLACK``;
 12. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
    them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
@@ -352,13 +364,21 @@ from repro_torch.train.step import make_train_step  # noqa: E402
 from repro_torch.dist import tp  # noqa: E402
 from repro_torch.dist.sharding import param_specs  # noqa: E402
 from repro_torch.hw import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.launch.dryrun import count_cell  # noqa: E402
+from repro_torch.launch.mesh import MeshSpec  # noqa: E402
+from repro_torch.roofline.analysis import bound_ms  # noqa: E402
+from repro_torch.roofline.count import Counter, differences  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
-from tools.train_ranks import (RankRun, active_params, step_digest,  # noqa: E402
-                               attention_calls, attention_pairs, busy_us, measure,
+from tools.train_ranks import (RankRun, step_digest, train_flops,  # noqa: E402
+                               attention_calls, busy_us, measure,
                                measure_rank, nvidia_smi, rank_summary)
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the [dryrun] phase: a measured step may come in under its counted bound
+# by this factor at most (the bound's rates are the data sheet's peaks)
+DRYRUN_SLACK = 1.05
 # the sharded bf16 layer's norm-wise distance to the float32 layer, over
 # the unsharded bf16 layer's (module docstring, phase 10)
 TP_RATIO = 2.5
@@ -715,15 +735,6 @@ def rw_only_design(f: torch.Tensor, out: torch.Tensor, nbytes: int) -> str:
             f"block, grid {grid}")
 
 
-def collision_flops_per_node(q: int, e: np.ndarray, mrt: bool) -> int:
-    """Flops of one node's macroscopics + equilibrium + relaxation
-    (incompressible), counted from the formulas as the JAX package's
-    ``model_flops_per_node`` does."""
-    nonzero_e = int((e != 0).sum())
-    flops = (q - 1) + nonzero_e * 2 - 3 + nonzero_e * 2 - q + q * 6 + 3
-    return flops + (q * q * 2 + q * 2 if mrt else q * 3)
-
-
 def k3_bwd_dq_faults(q, k, v, out, dout, tile: int = 64, **kw):
     """dQ of causal attention with the mask keywords ``kw`` (bf16 inputs,
     the plain version's float32 math) twice: whole, and with each query's
@@ -748,12 +759,6 @@ def k3_bwd_dq_faults(q, k, v, out, dout, tile: int = 64, **kw):
     ds.masked_fill_((pos[:, None] // tile) != (pos[None, :] // tile), 0.0)
     fault = whole - torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
     return whole.reshape(q.shape).to(q.dtype), fault.reshape(q.shape).to(q.dtype)
-
-
-def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_attention(q, k, v, *, scale, softcap, window, prefix_len):
@@ -966,6 +971,7 @@ class Smoke:
         self.ranks: dict[str, dict] = {}
         self.tp_launches: dict[str, int] = {}
         self.k3_bwd_tp: dict[str, dict] = {}
+        self.k1_bytes: dict[str, float] = {}
 
     # ------------------------------------------------------------ phase 1
     def build_kernels(self) -> None:
@@ -1205,9 +1211,9 @@ class Smoke:
         plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 3, 1,
                            label=f"K1 plain {dtype}")
         t, n = eng.tiling.num_tiles, eng.tiling.nodes_per_tile
-        nbytes = 2 * t * q * n * itemsize + (t + 1) * n + t * 27 * 4 + q * n * 5
-        flops = t * n * collision_flops_per_node(q, eng.lat.e, False)
-        bms, by = bound(nbytes, flops, eng.dtype)
+        flops, nbytes = k1.stream_collide_cost(t, eng.lat, eng.cfg.collision, itemsize, n)
+        bms, by = bound_ms(nbytes, flops, eng.dtype)
+        self.k1_bytes[dtype] = nbytes
         name = "stream_collide_tiles" + ("" if dtype == "float64" else f"[{dtype}]")
         self.kernels[name] = {
             "name": name, "route": "cuda", "source": f"{SOURCE}/stream_collide.cu",
@@ -1244,8 +1250,9 @@ class Smoke:
         ms, lib_ms = med["kernel"], med["copy_"]
         plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 5,
                            label=f"K1 rw_only plain {dtype}")
-        nbytes = 2 * f[:t].numel() * f.element_size()
-        bms, by = bound(nbytes, 0, eng.dtype)
+        flops, nbytes = k1.stream_collide_cost(t, eng.lat, eng.cfg.collision,
+                                               f.element_size(), f.shape[2], "rw_only")
+        bms, by = bound_ms(nbytes, flops, eng.dtype)
         sec = seconds / STEPS
         log(f"[main fused rw_only {dtype}] {STEPS} steps in {seconds:.4f} s, "
             f"{nbytes / sec / 1e9:.1f} GB/s moved; design "
@@ -1303,9 +1310,8 @@ class Smoke:
         plain_ms = time_ms(lambda: k2.collide_tiles_ref(f_in, solid, lat, cfg),
                            3, 1, label="K2 plain float64")
         q, t, n = f_in.shape
-        nbytes = 2 * f_in.numel() * f_in.element_size() + t * n
-        flops = t * n * collision_flops_per_node(q, lat.e, False)
-        bms, by = bound(nbytes, flops, f_in.dtype)
+        flops, nbytes = k2.collide_cost(t * n, lat, cfg, f_in.element_size())
+        bms, by = bound_ms(nbytes, flops, f_in.dtype)
         self.kernels["collide_tiles"] = {
             "name": "collide_tiles", "route": "cuda", "source": f"{SOURCE}/collide.cu",
             "replaces": "src/repro/kernels/collide.py:127",
@@ -1386,11 +1392,9 @@ class Smoke:
 
         k1_ms = time_ms(k1_step, 50)
         t = sum(b.tiling.num_tiles for b in eng.backends)
-        q, n, isz = eng.lat.q, 64, eng.dtype.itemsize
-        nbytes = (2 * t * q * n * isz + (t + slabs) * n + t * 27 * 4
-                  + slabs * q * n * 5)
-        bms, by = bound(nbytes, t * n * collision_flops_per_node(q, eng.lat.e, False),
-                        eng.dtype)
+        costs = [k1.stream_collide_cost(b.tiling.num_tiles, eng.lat, eng.cfg.collision,
+                                        eng.dtype.itemsize) for b in eng.backends]
+        bms, by = bound_ms(sum(c[1] for c in costs), sum(c[0] for c in costs), eng.dtype)
         del rows
 
         # the timed run from t = 0 (the case diverges near step 170); the peak
@@ -1405,7 +1409,7 @@ class Smoke:
         peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
         sec = seconds / STEPS
         nf = eng.n_fluid_nodes
-        share = 2 * q * nf * isz / sec / HBM_BYTES_PER_S
+        share = 2 * eng.lat.q * nf * eng.dtype.itemsize / sec / HBM_BYTES_PER_S
         ex_ms = time_ms(eng.exchange, 50)
         obs.set_device_annotations(True)
         try:
@@ -1484,10 +1488,9 @@ class Smoke:
         if not k_err <= TOL[torch.float64]:
             raise AssertionError(f"K2 per slab vs plain: {k_err:.3e}")
         ms = time_ms(lambda: [k2.collide_tiles(x, s, lat, cfg) for x, s in ins], 50)
-        t = sum(x.shape[1] for x, _ in ins)
-        q, n = lat.q, 64
-        bms, by = bound(2 * q * t * n * 8 + t * n,
-                        t * n * collision_flops_per_node(q, lat.e, False), torch.float64)
+        costs = [k2.collide_cost(x.shape[1] * x.shape[2], lat, cfg, x.element_size())
+                 for x, _ in ins]
+        bms, by = bound_ms(sum(c[1] for c in costs), sum(c[0] for c in costs), torch.float64)
         name = f"collide_tiles[sharded D={slabs}]"
         self.kernels[name] = {
             "name": name, "route": "cuda", "source": f"{SOURCE}/collide.cu",
@@ -1648,10 +1651,9 @@ class Smoke:
         ms = time_ms(lambda: k1.stream_collide_tiles(*kargs, out=ens._spare), 50,
                      label=f"K1 B={SIM_SLOTS} {dtype}")
         bt = SIM_SLOTS * t
-        q, n, isz = eng.lat.q, eng.tiling.nodes_per_tile, eng.dtype.itemsize
-        nbytes = 2 * bt * q * n * isz + (bt + 1) * n + bt * 27 * 4 + q * n * 5
-        flops = bt * n * collision_flops_per_node(q, eng.lat.e, False)
-        bms, by = bound(nbytes, flops, eng.dtype)
+        flops, nbytes = k1.stream_collide_cost(bt, eng.lat, eng.cfg.collision,
+                                               eng.dtype.itemsize, eng.tiling.nodes_per_tile)
+        bms, by = bound_ms(nbytes, flops, eng.dtype)
         ens_ms = time_ms(lambda: ens.run(1), 20, label=f"ensemble step {dtype}")
         prof, ens_busy_ms = self.profile_ensemble(ens, step_ms)
         name = "stream_collide_tiles" + ("" if dtype == "float64" else f"[{dtype}]")
@@ -2258,13 +2260,11 @@ class Smoke:
                          label=f"K3 {shape}")
             plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
                                label="K3 plain")
-            pos = torch.arange(s, device=self.dev)
-            visible = k3.visible_mask(pos, pos, window=kw["window"],
-                                      prefix_len=kw["prefix_len"])
             lib_ms = time_ms(lib_fn, 50, label=lib_name)
-            flops = 4.0 * float(visible.sum()) * hd * hq        # the visible pairs
-            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-            bms, by = bound(nbytes, flops, q.dtype)
+            flops, nbytes = k3.flash_attention_cost(          # the visible pairs
+                q.shape[0], s, k.shape[1], hq, k.shape[2], hd, q.element_size(),
+                window=kw["window"], prefix_len=kw["prefix_len"])
+            bms, by = bound_ms(nbytes, flops, q.dtype)
             if mask == model_mask(cfg):
                 key = kernel_entry(cfg)
                 self.kernels[key] = {
@@ -2280,7 +2280,7 @@ class Smoke:
                 f"{plain_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms (|err| {lib_err:.3e}, "
                 f"{lib_ratio:.3f} of K3's bound; K3 takes {ms / lib_ms:.2f}x "
                 f"{lib_name}'s time)")
-            del q, k, v, visible, lib_fn
+            del q, k, v, lib_fn
         calls.clear()
 
     # ------------------------------------------------------------ phase 8
@@ -2449,12 +2449,10 @@ class Smoke:
             split = {part: float(np.mean(us)) / 1e3 for part, us in traced_us.items()}
             window = kw["window"] if kw["window"] and kw["window"] < s else None
             work = bwd_block_work(s, s, hd, h // kvh, window=window, prefix_len=prefix)
-            pos = torch.arange(s, device=self.dev)
-            pairs = b * float(k3.visible_mask(pos, pos, window=kw["window"],
-                                              prefix_len=prefix).sum())
-            flops = 10.0 * hd * h * pairs               # visible, per head
-            nbytes = 2 * (4 * q.numel() + 4 * k.numel())  # q, o, dO, dq; k, v, dk, dv
-            bms, by = bound(nbytes, flops, torch.bfloat16)
+            flops, nbytes = k3.flash_attention_bwd_cost(b, s, s, h, kvh, hd, q.element_size(),
+                                                        window=kw["window"],
+                                                        prefix_len=prefix)
+            bms, by = bound_ms(nbytes, flops, torch.bfloat16)
             shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} bf16 causal"
                      + (f" window={kw['window']}" if kw["window"] else "")
                      + (f" prefix={prefix}" if prefix else "")
@@ -2539,10 +2537,7 @@ class Smoke:
             raise AssertionError(f"K3 launches in {run.timed} steps of {run.arch}: {got}, "
                                  f"expected {want}")
         tokens = run.batch * run.seq
-        n_active = active_params(model, cfg)
-        # fwd + bwd products of each visible pair and head: 3 x 4 hd
-        attn = 3 * 4.0 * cfg.hd * cfg.n_heads * run.batch * attention_pairs(cfg, positions)
-        flops = 6.0 * n_active * run.batch * positions + attn
+        flops, n_active, attn = train_flops(cfg, run.batch, positions)
         share = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
         unc = {"ssm": "; not counted: the chunked WKV's own products",
                "hybrid": "; not counted: the chunked SSD's own products"}.get(cfg.family, "")
@@ -2942,9 +2937,9 @@ class Smoke:
                            label="K3 plain")
         lib_ms = time_ms(lib_fn, 50, label=lib_name)
         hq, hd = q.shape[2], q.shape[3]
-        pos = torch.arange(q.shape[1], device=self.dev)
-        flops = 4.0 * float(k3.visible_mask(pos, pos).sum()) * hd * hq
-        bms, by = bound(2 * (q.numel() + k.numel()) * q.element_size(), flops, q.dtype)
+        flops, nbytes = k3.flash_attention_cost(q.shape[0], q.shape[1], k.shape[1], hq,
+                                                k.shape[2], hd, q.element_size())
+        bms, by = bound_ms(nbytes, flops, q.dtype)
         blocks = q.shape[0] * hq * -(-q.shape[1] // 128)
         self.kernels["flash_attention_tp"] = {
             "name": "flash_attention_tp", "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
@@ -3154,10 +3149,9 @@ class Smoke:
         lib_ms = time_ms(lib_fn, 50, label=lib_name)
         plain_ms = time_ms(lambda: k3.flash_attention_ref(q, k, v, **kw), 20,
                            label="K3 plain")
-        pos = torch.arange(s, device=self.dev)
-        pairs = float(k3.visible_mask(pos, pos, prefix_len=kw["prefix_len"]).sum())
-        flops = 4.0 * pairs * hd * hq * q.shape[0]
-        bms, by = bound(2 * (q.numel() + k.numel()) * q.element_size(), flops, q.dtype)
+        shape = (q.shape[0], s, k.shape[1], hq, k.shape[2], hd, q.element_size())
+        flops, nbytes = k3.flash_attention_cost(*shape, prefix_len=kw["prefix_len"])
+        bms, by = bound_ms(nbytes, flops, q.dtype)
         key = f"flash_attention_tp_{arch.split('-')[0]}"
         self.kernels[key] = {
             "name": key, "route": "cuda", "source": f"{SOURCE}/flash_attn.cu",
@@ -3185,8 +3179,8 @@ class Smoke:
         b_ms = time_ms(lambda: k3.flash_attention_bwd(q, k, v, out, dout, lse, **bkw), 50,
                        label=f"K3 bwd {label}")
         b_lib = time_ms(lib_bwd, 20, label=f"{lib_name} backward")
-        b_bms, b_by = bound(2 * (4 * q.numel() + 4 * k.numel()), 10.0 * hd * hq * pairs,
-                            q.dtype)
+        b_flops, b_bytes = k3.flash_attention_bwd_cost(*shape, prefix_len=kw["prefix_len"])
+        b_bms, b_by = bound_ms(b_bytes, b_flops, q.dtype)
         self.k3_bwd_tp[arch] = {"ms": b_ms, "library_ms": b_lib, "bound_ms": b_bms,
                                 "bound_by": b_by, "shape": label, "worst_of_bound": worst}
         log(f"[K3 bwd {label}] worst |err| / bound {worst:.3f}, norm-wise {norm:.3e} (limit "
@@ -3328,6 +3322,153 @@ class Smoke:
         del cache, logits
 
 
+    # ------------------------------------------------------- phase [dryrun]
+    def dryrun_lbm(self, case) -> None:
+        """(a) The dry-run of the main spheres case, one slab on the meta
+        device (``ShardedLBM.count_step``), f64 and f32: its t_memory,
+        t_compute and bound beside phase 3's measured ms a step.  K1's
+        counted bytes must be those the kernels line's bound divides, and
+        no measured step may beat its bound by more than 5 %."""
+        for dtype in ("float64", "float32"):
+            t0 = time.perf_counter()
+            cfg = LBMConfig(collision=C.CollisionConfig(tau=0.6), dtype=dtype,
+                            boundaries=case.boundaries, periodic=case.periodic,
+                            backend="fused")
+            eng = ShardedLBM(case.geometry, cfg, slabs=1, devices="meta")
+            (c,) = eng.count_step()
+            count_s = time.perf_counter() - t0
+            _, k1_flops, k1_bytes = c.kernels["stream_collide_tiles"]
+            if k1_bytes != self.k1_bytes[dtype]:
+                raise AssertionError(f"[dryrun LBM {dtype}] K1 counted {k1_bytes} B, the "
+                                     f"kernels line's bound divides {self.k1_bytes[dtype]} B")
+            t_mem = c.bytes / HBM_BYTES_PER_S * 1e3
+            t_cmp = c.flops / PEAK_FLOPS[eng.dtype] * 1e3
+            bound, measured = max(t_mem, t_cmp), self.sharded[(dtype, 1)]["ms_per_step"]
+            log(f"[dryrun LBM {dtype}] spheres scale 4 fused, one slab counted on the meta "
+                f"device in {count_s:.1f} s: {c.flops:.6e} FLOPs, {c.bytes:.6e} B a step "
+                f"(K1 {k1_bytes:.0f} B = the kernels line's, the NEBB pass "
+                f"{c.bytes - k1_bytes:.6e} B in {sum(r[0] for n, r in c.by_op.items() if n != 'stream_collide_tiles')} "
+                f"ops); t_memory {t_mem:.4f} ms, t_compute {t_cmp:.4f} ms, bound {bound:.4f} "
+                f"ms; measured (phase 3) {measured:.4f} ms a step: bound / measured "
+                f"{bound / measured:.4f}")
+            if bound / measured > DRYRUN_SLACK:
+                raise AssertionError(f"[dryrun LBM {dtype}] the measured step ({measured:.4f} "
+                                     f"ms) beats its counted bound ({bound:.4f} ms)")
+            del eng, c
+
+    def dryrun_lm(self) -> None:
+        """(b) starcoder2-3b's training step at 2 x 4096 on one card: counted
+        on the meta device (``launch.dryrun.count_cell`` on a 1 x 1 mesh),
+        then a real step counted on the card under the same counter.  FLOPs
+        and bytes agree to 1 % (every op that differs is named), the
+        predicted peak is within 10 % of ``max_memory_allocated``, and the
+        counted bound is no more than 5 % above the measured step.  (c) One
+        decode step of ``ServeEngine(slots=4)`` on the same weights against
+        the counted decode's t_memory."""
+        arch, run = "starcoder2-3b", TRAIN_RUNS[0]
+        cfg = get_config(arch)
+        one = MeshSpec((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        meta = count_cell(arch, "train", one, shape=ShapeSpec("train", "train", run.seq,
+                                                                run.batch), verbose=False)
+        meta_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = CausalLM(cfg, seed=0)
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        opt = init_state(params)
+        step_fn = make_train_step(model, AdamWConfig())
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq,
+                                        global_batch=run.batch, seed=0))
+        batches = [pipe.next() for _ in range(4)]
+        opt, _ = step_fn(opt, batches[0], 0)              # warm-up: kernels loaded
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for i in (1, 2):
+            start.record()
+            opt, _ = step_fn(opt, batches[i], i)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        step_ms = float(np.median(times))
+        torch.cuda.reset_peak_memory_stats()
+        with Counter() as real:
+            real.resident([list(params.values()), opt["m"], opt["v"]])
+            opt, _ = step_fn(opt, batches[3], 3)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        diffs = differences(meta["by_op"], real.by_op)
+        rel_f = abs(meta["flops_per_device"] - real.flops) / real.flops
+        rel_b = abs(meta["bytes_per_device"] - real.bytes) / real.bytes
+        rel_p = abs(meta["hbm_need"] - peak) / peak
+        bound = max(meta["t_compute"], meta["t_memory"]) * 1e3
+        log(f"[dryrun train {arch}] {run.batch} x {run.seq}, one card: counted on meta in "
+            f"{meta_s:.1f} s: {meta['flops_per_device']:.6e} FLOPs, "
+            f"{meta['bytes_per_device']:.6e} B, peak {meta['hbm_need'] / 2**30:.3f} GiB; "
+            f"the card's step under the counter: {real.flops:.6e} FLOPs ({rel_f:.2e} apart), "
+            f"{real.bytes:.6e} B ({rel_b:.2e} apart), counter peak {real.peak / 2**30:.3f} "
+            f"GiB, max_memory_allocated {peak / 2**30:.3f} GiB (the meta peak {rel_p:.3f} "
+            f"apart); ops that differ: {diffs or 'none'}; t_compute "
+            f"{meta['t_compute'] * 1e3:.2f} ms, t_memory {meta['t_memory'] * 1e3:.2f} ms, "
+            f"measured {step_ms:.2f} ms a step (median of {len(times)}): bound / measured "
+            f"{bound / step_ms:.4f}; useful FLOPs ratio {meta['useful_flops_ratio']:.4f}")
+        if rel_f > 0.01 or rel_b > 0.01:
+            raise AssertionError(f"[dryrun train] meta and card counts differ: {diffs}")
+        if rel_p > 0.10:
+            raise AssertionError(f"[dryrun train] peak {meta['hbm_need']} vs {peak}")
+        if bound / step_ms > DRYRUN_SLACK:
+            raise AssertionError(f"[dryrun train] step {step_ms} ms beats its bound {bound}")
+        del opt, step_fn, params, real
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) a decode step of the server on the same weights
+        model.requires_grad_(False)
+        serve = SERVE_RUNS[0]
+        eng = ServeEngine(model, serve.slots, serve.max_len)
+        rng = np.random.default_rng(5)
+        for rid in range(serve.slots):
+            eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, serve.prompt,
+                                                            dtype=np.int32),
+                               max_new_tokens=serve.new))
+        eng.step()                                  # admits every slot, one decode
+        eng.step()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start.record()
+            eng.step()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        dec_ms = float(np.median(times))
+        dec = count_cell(arch, "decode", one, shape=ShapeSpec(
+            "decode", "decode", serve.max_len, serve.slots), cache_dtype=eng.cache_dtype,
+            verbose=False)
+        t_mem = dec["t_memory"] * 1e3
+        log(f"[dryrun decode {arch}] ServeEngine(slots={serve.slots}), max_len "
+            f"{serve.max_len}, {str(eng.cache_dtype)[6:]} cache: counted "
+            f"{dec['bytes_per_device']:.6e} B, {dec['flops_per_device']:.6e} FLOPs a step, "
+            f"t_memory {t_mem:.4f} ms, t_compute {dec['t_compute'] * 1e3:.4f} ms; measured "
+            f"{dec_ms:.4f} ms a step (median of 5 engine steps): t_memory / measured "
+            f"{t_mem / dec_ms:.4f}")
+        if t_mem / dec_ms > DRYRUN_SLACK:
+            raise AssertionError(f"[dryrun decode] step {dec_ms} ms beats t_memory {t_mem}")
+        del eng, model
+
+    def dryrun_main(self) -> None:
+        t1 = time.perf_counter()
+        self.dryrun_lbm(launcher.make_case("spheres", 4))
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.dryrun_lm()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[dryrun] phase in {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -3393,6 +3534,7 @@ def main() -> int:
     t1 = time.perf_counter()
     smoke.tp_families()
     log(f"[tp families] phase in {time.perf_counter() - t1:.1f} s")
+    smoke.dryrun_main()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(smi)

@@ -126,3 +126,24 @@ def collision_matrix_np(lat: Lattice, tau: float) -> np.ndarray:
     if lat.q != 19:
         raise NotImplementedError("MRT matrix defined for D3Q19 only")
     return d3q19_mrt_collision_matrix(float(tau))
+
+
+def model_flops_per_node(cfg: CollisionConfig, lat: Lattice) -> int:
+    """Analytic FLOP count of one node's collision and macroscopics, counted
+    from the formulas (the reference's ``model_flops_per_node``, a portable
+    analogue of the paper's Table 2).  The work that K1 and K2 do a node,
+    in their cost functions."""
+    q, d = lat.q, 3
+    nonzero_e = int((lat.e != 0).sum())
+    flops = (q - 1)                       # rho = sum f
+    flops += nonzero_e * 2 - d            # j: adds+mults for nonzero e only
+    if cfg.fluid == QUASI_COMPRESSIBLE:
+        flops += d                        # u = j / rho
+    # equilibrium: eu (nonzero e), poly (4 ops), weight apply (2)
+    flops += nonzero_e * 2 - q + q * 6 + (q if cfg.fluid == QUASI_COMPRESSIBLE else 0)
+    flops += 3                            # u2
+    if cfg.model == LBGK:
+        flops += q * 3                    # (feq - f)/tau + f
+    else:
+        flops += q * q * 2 + q * 2        # dense 19x19 matvec + update
+    return flops

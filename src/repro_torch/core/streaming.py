@@ -32,7 +32,8 @@ import numpy as np
 
 from .lattice import Lattice
 from .layouts import XYZ, direction_layouts, layout_permutation
-from .tiling import (NEIGHBOR_OFFSETS, SOLID, Tiling, neighbor_offset_index)
+from .tiling import (NEIGHBOR_OFFSETS, SOLID, Tiling, neighbor_offset_index,
+                     pow2_hist)
 
 _CHUNK_TILES = 4096
 SELF_OFFSET = neighbor_offset_index(0, 0, 0)          # 13
@@ -86,7 +87,16 @@ class StreamTables:
     cross_tile_frac: float
     interior_frac: float
     frontier_frac: float
+    # locality of the cross-tile links in tile-index space: how far apart
+    # in the storage order the two ends of a cross-tile link sit, which the
+    # tile traversal policy (Tiling.order) reshapes
+    mean_link_distance: float = 0.0
+    link_distance_hist: dict = dataclasses.field(default_factory=dict)
     split: SplitStreamTables | None = None
+
+    @property
+    def index_entries_mono(self) -> int:
+        return int(self.gather_idx.size)
 
     @property
     def index_bytes_mono(self) -> int:
@@ -139,7 +149,8 @@ def build_stream_tables(
 
     gather = np.empty((lat.q, len(sel), n), dtype=np.int32)
     bounce_all = np.empty((lat.q, len(sel), n), dtype=bool) if split else None
-    bounce_links = cross_links = interior_links = fluid_nodes = 0
+    bounce_links = cross_links = interior_links = fluid_nodes = dist_sum = 0
+    dist_buckets = np.zeros(64, dtype=np.int64)
     for c0 in range(0, len(sel), _CHUNK_TILES):
         tl = sel[c0:c0 + _CHUNK_TILES]
         coords = (tiling.tile_coords[tl].astype(np.int64)[:, None, :] * a
@@ -177,8 +188,14 @@ def build_stream_tables(
                 moving = ~bounce & fluid
                 same = src_tile_cl == self_tile
                 bounce_links += int((bounce & fluid).sum())
-                cross_links += int((moving & ~same).sum())
+                cross = moving & ~same
+                cross_links += int(cross.sum())
                 interior_links += int((moving & same).sum())
+                if cross.any():
+                    d = np.abs(src_tile_cl - self_tile)[cross]
+                    dist_sum += int(d.sum())
+                    dist_buckets += np.bincount(np.floor(np.log2(d)).astype(int),
+                                                minlength=64)[:64]
 
     total_links = max(1, fluid_nodes * (lat.q - 1))
     tables = StreamTables(
@@ -189,6 +206,8 @@ def build_stream_tables(
         cross_tile_frac=cross_links / total_links,
         interior_frac=interior_links / total_links,
         frontier_frac=cross_links / total_links,
+        mean_link_distance=dist_sum / cross_links if cross_links else 0.0,
+        link_distance_hist=pow2_hist(dist_buckets),
     )
     if split:
         tables.split = _build_split_tables(tiling, lat, periodic, eff_perms,

@@ -107,6 +107,18 @@ def hilbert_key_3d(coords: np.ndarray, bits: int) -> np.ndarray:
     return key
 
 
+def pow2_hist(counts: np.ndarray) -> dict:
+    """Per-log2-bucket counts as ``{"1": n, "2-3": n, "4-7": n}``
+    (JSON-friendly; bucket k covers distances in [2^k, 2^(k+1)))."""
+    out = {}
+    for k, c in enumerate(counts):
+        if not c:
+            continue
+        lo, hi = 2 ** k, 2 ** (k + 1) - 1
+        out[str(lo) if lo == hi else f"{lo}-{hi}"] = int(c)
+    return out
+
+
 def tile_order_permutation(coords: np.ndarray, order: str) -> np.ndarray:
     """Permutation taking z-major-sorted tile coords into ``order``."""
     if order == "zmajor":
@@ -205,6 +217,81 @@ class Tiling:
         """Non-solid nodes / bounding-box nodes (paper §4.6 definition)."""
         return self.n_fluid_nodes / float(np.prod(self.orig_shape))
 
+    def overhead_generic(self) -> float:
+        """Delta_eta (Eqn 15): extra work ratio from solid nodes in tiles."""
+        eta = self.tile_utilisation
+        return (1.0 - eta) / eta if eta > 0 else float("inf")
+
+    def overhead_memory(self, q: int = 19, n_d: int = 8, n_t: int = 1) -> float:
+        """Delta^M_eta (Eqn 16) vs the q*n_d minimum of Eqn (9)."""
+        eta = self.tile_utilisation
+        if eta == 0:
+            return float("inf")
+        return (2.0 * q * n_d + n_t) / (eta * q * n_d) - 1.0
+
+    # ---- locality diagnostics (the data-placement half of the paper) ----
+    def neighbor_index_distances(self) -> np.ndarray:
+        """|neighbour tile index - own index| over every populated
+        neighbour-table link (self offset excluded): small distances mean
+        linked tiles sit close in the storage order that ``order`` sets."""
+        own = np.arange(self.num_tiles, dtype=np.int64)[:, None]
+        nbr = self.tile_neighbors.astype(np.int64)
+        valid = nbr >= 0
+        valid[:, neighbor_offset_index(0, 0, 0)] = False
+        return np.abs(nbr - own)[valid]
+
+    def mean_neighbor_index_distance(self) -> float:
+        d = self.neighbor_index_distances()
+        return float(d.mean()) if d.size else 0.0
+
+    def neighbor_index_distance_hist(self) -> dict:
+        """Power-of-two histogram of the neighbour index distances
+        (:func:`pow2_hist`)."""
+        d = self.neighbor_index_distances()
+        if not d.size:
+            return {}
+        buckets = np.floor(np.log2(np.maximum(d, 1))).astype(int)
+        return pow2_hist(np.bincount(buckets))
+
+    def locality_metrics(self) -> dict:
+        """JSON-ready placement summary (the reference's geometry suite)."""
+        return {
+            "tile_order": self.order,
+            "mean_neighbor_index_distance": round(self.mean_neighbor_index_distance(), 2),
+            "neighbor_index_distance_hist": self.neighbor_index_distance_hist(),
+        }
+
+    def intra_tile_link_distances(self, e: np.ndarray | None = None) -> np.ndarray:
+        """|src slot - dst slot| over every statically intra-tile link: for
+        each moving direction whose pull source stays inside the tile, the
+        distance between the link's two ends in the storage slot order,
+        which ``node_order`` reshapes (the tile order does not).  Every tile
+        shares the one (a^3,) slot permutation, so this is one pass.
+
+        ``e``: (Q, 3) velocity set; default the 26-point unit stencil."""
+        a = self.a
+        if e is None:
+            e = NEIGHBOR_OFFSETS
+        sigma = self.node_perm                       # canonical -> slot
+        c = self.node_of_slot                        # slot -> canonical
+        x, y, z = c % a, (c // a) % a, c // (a * a)  # coords per slot
+        slots = np.arange(a ** 3, dtype=np.int64)
+        out = []
+        for eq in np.asarray(e, np.int64):
+            if not eq.any():
+                continue
+            sx, sy, sz = x - eq[0], y - eq[1], z - eq[2]
+            intra = ((sx >= 0) & (sx < a) & (sy >= 0) & (sy < a)
+                     & (sz >= 0) & (sz < a))
+            src = sigma[(sx + a * sy + a * a * sz)[intra]]
+            out.append(np.abs(src - slots[intra]))
+        return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
+
+    def mean_intra_tile_link_distance(self, e: np.ndarray | None = None) -> float:
+        """Mean storage-slot distance of the intra-tile links."""
+        d = self.intra_tile_link_distances(e)
+        return float(d.mean()) if d.size else 0.0
+
     def node_coords(self) -> np.ndarray:
         """Global (x, y, z) for every (tile, node) slot — (T, a^3, 3) int32."""
         a = self.a
@@ -289,3 +376,14 @@ def untile(tiling: Tiling, values: np.ndarray, fill=0.0) -> np.ndarray:
     coords = tiling.node_coords()
     out[..., coords[..., 0], coords[..., 1], coords[..., 2]] = values
     return out
+
+
+def tile_field(tiling: Tiling, dense: np.ndarray) -> np.ndarray:
+    """Gather a dense (..., Nx, Ny, Nz) field into (..., T, a^3) tile slots
+    (the inverse of :func:`untile` on the tiles' nodes)."""
+    pad_width = [(0, 0)] * (dense.ndim - 3) + [
+        (0, tiling.shape[i] - dense.shape[dense.ndim - 3 + i]) for i in range(3)]
+    if any(p[1] for p in pad_width):
+        dense = np.pad(dense, pad_width)
+    coords = tiling.node_coords()
+    return dense[..., coords[..., 0], coords[..., 1], coords[..., 2]]

@@ -8,7 +8,12 @@ per such rank, as a list in rank order:
 * :class:`LocalComm` holds all W ranks in one process (CPU tests, or M
   ranks on one card);
 * :class:`DistComm` is one rank of a ``torch.distributed`` world, its list
-  one entry long.
+  one entry long;
+* :class:`CountComm` is one rank of a W-rank mesh inside this process with
+  no peers (the dry-run, ``launch.dryrun``): each collective returns a
+  result of the right shape (values unset: meant for the meta device) and
+  records its operand bytes by op and mesh axis with the active counter
+  (``roofline.count``), in the forward and in the backward.
 
 Both give the reference's collectives of ``moe_ffn_ep``: ``all_to_all``
 over the "model" axis (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``)
@@ -31,9 +36,12 @@ sums to rounding.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
+
+from ..roofline import count
 
 
 class LocalComm:
@@ -244,6 +252,87 @@ class DistComm:
         return [_AllMean.apply(x, self.world)]
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _resized(x: torch.Tensor, dim: int, factor: float) -> torch.Tensor:
+    if factor == 1:
+        return x.new_empty(x.shape)
+    shape = list(x.shape)
+    shape[dim] = int(shape[dim] * factor)
+    return x.new_empty(shape)
+
+
+class _Counted(torch.autograd.Function):
+    """A collective counted, not run: ``fwd``/``bwd`` are (op, factor)
+    pairs, the output's ``dim`` scaled by factor (1: same shape)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, fwd, bwd, axis):
+        ctx.dim, ctx.bwd, ctx.axis = dim, bwd, axis
+        op, factor = fwd
+        out = _resized(x, dim, factor)
+        count.collective(op, axis, _nbytes(x), _nbytes(out))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        op, factor = ctx.bwd
+        out = _resized(grad, ctx.dim, factor)
+        count.collective(op, ctx.axis, _nbytes(grad), _nbytes(out))
+        return out, None, None, None, None
+
+
+class CountComm:
+    """This process's one rank of a mesh (``launch.mesh.MeshSpec``) with no
+    peers: every collective returns a tensor of its result's shape and
+    counts its operand bytes on its axes (the data row's "model" axis, or
+    every axis for ``all_mean``), in the forward and, through autograd, in
+    the backward: an all-gather's adjoint is a reduce-scatter, an
+    all-reduce's an all-reduce, an all-to-all's an all-to-all."""
+
+    ranks = 1
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.model = mesh.axis_size("model")
+        self.data = mesh.chips // self.model
+        self.world_axes = ",".join(mesh.axis_names)
+
+    def _one(self, xs, dim, fwd, bwd, axis="model"):
+        (x,) = xs
+        if self.model == 1 and axis == "model":
+            return [x]
+        return [_Counted.apply(x, dim % max(1, x.dim()), fwd, bwd, axis)]
+
+    def gather(self, xs: list, dim: int) -> list:
+        return self._one(xs, dim, ("all-gather", self.model),
+                         ("reduce-scatter", 1 / self.model))
+
+    def scatter_sum(self, xs: list, dim: int) -> list:
+        return self._one(xs, dim, ("reduce-scatter", 1 / self.model),
+                         ("all-gather", self.model))
+
+    def sum(self, xs: list) -> list:
+        return self._one(xs, 0, ("all-reduce", 1), ("all-reduce", 1))
+
+    def max(self, xs: list) -> list:
+        (x,) = xs
+        out = x.detach().clone()
+        if self.model > 1:
+            count.collective("all-reduce", "model", _nbytes(x), _nbytes(x))
+        return [out]
+
+    def all_to_all(self, xs: list) -> list:
+        return self._one(xs, 0, ("all-to-all", 1), ("all-to-all", 1))
+
+    def all_mean(self, xs: list) -> list:
+        if math.prod(self.mesh.shape) == 1:
+            return list(xs)
+        return self._one(xs, 0, ("all-reduce", 1), ("all-reduce", 1), self.world_axes)
+
+
 @dataclasses.dataclass(frozen=True)
 class Rank:
     """A module's place in its data row: the row's "model" comm, this
@@ -292,5 +381,5 @@ class ScaleGrad(torch.autograd.Function):
         return grad * ctx.c, None
 
 
-__all__ = ["SOLO", "DistComm", "LocalComm", "Rank", "ScaleGrad", "cut_seq", "gather_seq",
+__all__ = ["SOLO", "CountComm", "DistComm", "LocalComm", "Rank", "ScaleGrad", "cut_seq", "gather_seq",
            "reduce_seq"]

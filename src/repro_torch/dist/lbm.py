@@ -51,6 +51,7 @@ from ..core.streaming import StreamTables, build_stream_tables
 from ..core.tiling import (SLAB_COMPATIBLE_ORDERS, SOLID, Tiling,
                            tile_geometry)
 from ..device import resolve_device
+from ..roofline.count import Counter
 
 UP, DOWN = 0, 1          # a hop's direction along z (its message tag)
 
@@ -636,6 +637,32 @@ class ShardedLBM:
 
     def mflups(self, seconds_per_step: float) -> float:
         return self.plan.n_fluid_own / seconds_per_step / 1e6
+
+    def count_step(self, axis: str = "data") -> list:
+        """One step of each slab counted as one device of a slab mesh runs
+        it (``roofline.count.Counter``; build the engine with
+        ``devices="meta"`` to count without allocating): the halo
+        exchange's collective-permutes over mesh ``axis``, one a hop the
+        slab sends, each the reference's padded (Q, h, n) block of f; then
+        the slab's backend step: on ``fused`` K1 by its cost function and
+        the NEBB pass's ops, on ``gather`` streaming and the collision (K2
+        by its cost function with ``use_kernel``).  Returns one Counter a
+        slab, in slab order; the slab's state counts as resident."""
+        h = self._halo_tables["su"].shape[1] if self.hops else 0
+        block = self.lat.q * h * self.plan.nodes_per_tile * self.dtype.itemsize
+        out = []
+        for d, b, f in zip(self.slab_ids, self.backends, self.f):
+            with Counter() as c:
+                c.resident(f)
+                for hop in self.hops:
+                    if hop.src == d:
+                        c.collective("collective-permute", axis, block, block)
+                if self.fused:
+                    b.boundary_pass(f, b.stream_collide(f))
+                else:
+                    b.step(f)
+            out.append(c)
+        return out
 
 
 __all__ = ["DistributedExchange", "HaloHop", "LocalExchange", "ShardedLBM",

@@ -33,6 +33,14 @@ wherever a sequence does not divide by M (the rules' ``fit`` drops the
 axis), the stream is whole on every rank and an all-reduce replaces the
 reduce-scatter.
 
+Where the query heads do not divide by M (the production mesh's M = 16
+against starcoder2's 24, qwen1.5's 40, gemma2's and paligemma's 8 heads)
+``wq`` is still split on its columns as the spec says, so a shard cuts a
+head: the q projection is gathered over "model", every rank attends with
+every head (duplicate work: M times the attention's products), and each
+rank takes its own columns of the attention output before ``wo``'s row
+shard (``models.attention.cut_heads``).  The dense and vlm families only.
+
 Where the KV heads do not divide by M (starcoder2 and chatglm3 have 2),
 ``wk``/``wv`` are still split on their columns as the spec says; the
 projections are all-gathered over "model", and each rank attends with
@@ -109,13 +117,17 @@ def check_tp(cfg, model: int) -> None:
     with whole query heads), an expert, and an audio head whose codebook
     blocks and column shards neither hold whole codebooks nor cut one
     evenly.  A column shard that holds a fraction of a KV head (paligemma's
-    one KV head) or of an rwkv6 head is gathered over "model" instead."""
+    one KV head) or of an rwkv6 head is gathered over "model" instead, and
+    so is one that cuts a query head of the dense and vlm families (the
+    reference's rules split ``wq``'s columns where its heads do not divide:
+    ``models.attention.cut_heads``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has no placement "
                                   f"across ranks (families: {', '.join(FAMILIES)})")
     if model == 1:
         return
-    if cfg.family != "ssm" and cfg.n_heads % model:
+    if cfg.family != "ssm" and cfg.n_heads % model and (
+            cfg.family not in ("dense", "vlm") or cfg.n_heads * cfg.hd % model):
         raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} query heads do not split over "
                                   f"{model} model ranks")
     if cfg.moe is not None and cfg.moe.n_experts % model:

@@ -242,4 +242,69 @@ def _build(cfg: ModelConfig, mesh, dev: torch.device, seed: int | None) -> Causa
     return model
 
 
-__all__ = ["FAMILIES", "Placement", "ranked_lm"]
+def _bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params)
+
+
+def fsdp_collectives(model: CausalLM, specs: dict, rules: dict, backward: bool = True
+                     ) -> list[tuple[str, str, float, float]]:
+    """The collectives one pass of a ranked model issues over the dp axes
+    and over "model" outside its layers, counted from the rank's own
+    leaves (``model``: one rank's leaves, cut over "model"; ``specs``: the
+    whole model's ``param_specs`` under ``rules``), as (op, axes, operand
+    bytes, output bytes):
+
+    * ZeRO-3 (D > 1): each FSDP unit of :func:`_bodies` all-gathers its
+      leaves' shards in the forward and, resharded after it, again in the
+      backward, then reduce-scatters its gradients (in the parameters'
+      dtype); the root unit (embedding, final norm, head, zamba2's shared
+      block and LoRA) gathers once and reduces once.  Leaves with no ZeRO
+      dim (or one D does not divide) are not FSDP's;
+    * with ``backward``, ``Placement.sync_grads``'s float32 all-reduces:
+      the leaves whole over "model" over the data row (M > 1), the leaves
+      FSDP ignores over the dp axes (D > 1)."""
+    sizes = rules["_axes"]
+    dp = tuple(a for a in rules.get("fsdp") or () if a in sizes)
+    data = 1
+    for a in dp:
+        data *= sizes[a]
+    M = sizes.get("model", 1)
+    dp_axes = ",".join(dp)
+
+    def zeroed(name, p) -> bool:
+        i = zero_dim(specs[name], rules)
+        return data > 1 and i is not None and p.shape[i] % data == 0
+
+    out = []
+    units: set = set()
+
+    def unit(params: dict, root: bool) -> None:
+        full = _bytes(p for n, p in params.items() if zeroed(n, p))
+        if not full:
+            return
+        out.append(("all-gather", dp_axes, full / data, full))
+        if backward:
+            if not root:
+                out.append(("all-gather", dp_axes, full / data, full))
+            out.append(("reduce-scatter", dp_axes, full, full / data))
+
+    for prefix, body, is_unit in _bodies(model):
+        if is_unit:
+            names = {n: p for p, n in _names(body, prefix).items()}
+            units.update(names)
+            unit(names, root=False)
+    params = dict(model.named_parameters())
+    unit({n: p for n, p in params.items() if n not in units}, root=True)
+    if backward:
+        kinds: dict = {}
+        for n, p in params.items():
+            key = (M > 1 and tp.model_dim(specs[n]) is None, data > 1 and not zeroed(n, p))
+            if any(key):
+                kinds[key] = kinds.get(key, 0) + p.numel() * 4
+        for (over_model, over_data), nbytes in kinds.items():
+            axes = ",".join((dp if over_data else ()) + (("model",) if over_model else ()))
+            out.append(("all-reduce", axes, float(nbytes), float(nbytes)))
+    return out
+
+
+__all__ = ["FAMILIES", "Placement", "fsdp_collectives", "ranked_lm"]

@@ -20,6 +20,7 @@ import torch
 
 from ..core import collision as col
 from ..core.lattice import Lattice
+from ..roofline import count
 from . import build
 
 
@@ -104,6 +105,15 @@ def collision_args(lat: Lattice, cfg: col.CollisionConfig, force, f):
     return a_mat, args
 
 
+def collide_cost(nodes: int, lat: Lattice, cfg: col.CollisionConfig,
+                 itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one K2 launch over ``nodes`` = T n slots: the
+    collision of every slot (``model_flops_per_node``), the Q values of
+    each read and written once and its solid flag read."""
+    return (float(nodes * col.model_flops_per_node(cfg, lat)),
+            float(2 * lat.q * nodes * itemsize + nodes))
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("collide")
@@ -117,7 +127,8 @@ def _lib() -> ctypes.CDLL:
 def collide_tiles(f: torch.Tensor, solid: torch.Tensor, lat: Lattice,
                   cfg: col.CollisionConfig, force=None) -> torch.Tensor:
     """Collide the (Q, T, n) state; K2 on the card, the plain version on
-    the CPU."""
+    the CPU; on the meta device the output's shape only, reporting
+    :func:`collide_cost` to the active counter (``roofline.count``)."""
     if f.device.type == "cpu":
         return collide_tiles_ref(f, solid, lat, cfg, force)
     if f.dim() != 3 or f.shape[0] != lat.q:
@@ -126,9 +137,13 @@ def collide_tiles(f: torch.Tensor, solid: torch.Tensor, lat: Lattice,
         raise TypeError(f"collide_tiles takes float32/float64, got {f.dtype}")
     build.check_tensor(f, "f", f.device)
     build.check_tensor(solid, "solid", f.device, torch.bool, f.shape[1:])
-    a_mat, args = collision_args(lat, cfg, force, f)
     out = torch.empty_like(f)
     m = f.shape[1] * f.shape[2]
+    cost = collide_cost(m, lat, cfg, f.element_size())
+    if f.device.type == "meta":
+        count.kernel("collide_tiles", *cost)
+        return out
+    a_mat, args = collision_args(lat, cfg, force, f)
     lib = _lib()
     # the launch function launches into, and sets attributes on, the
     # current card: make it the tensor's, which may be another card
@@ -138,6 +153,7 @@ def collide_tiles(f: torch.Tensor, solid: torch.Tensor, lat: Lattice,
             lat.q, build.DTYPE_CODES[f.dtype], *args, build.stream(f.device))
     build.check(lib, code, "collide_tiles")
     collide_tiles.launches += 1
+    count.kernel("collide_tiles", *cost)
     return out
 
 

@@ -40,8 +40,10 @@ import ctypes
 import math
 from functools import lru_cache
 
+import numpy as np
 import torch
 
+from ..roofline import count
 from . import build
 
 NEG_INF = -1e30
@@ -66,6 +68,48 @@ def visible_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
     if prefix_len:
         m |= (kp < prefix_len) & (qp < prefix_len)
     return m
+
+
+def visible_pairs(s: int, t: int, *, causal: bool = True, window: int | None = None,
+                  prefix_len: int = 0) -> int:
+    """The (query, key) pairs that ``visible_mask`` keeps among queries
+    0..S-1 and keys 0..T-1 (all S T without ``causal``), counted row by row
+    without building the mask."""
+    if not causal:
+        return s * t
+    rows = np.arange(s, dtype=np.int64)
+    hi = np.minimum(rows, t - 1)
+    lo = np.maximum(0, rows - window + 1) if window is not None else np.zeros_like(rows)
+    seen = np.maximum(0, hi - lo + 1)
+    p = min(int(prefix_len), t)
+    if p:
+        pre = rows < prefix_len
+        inside = np.maximum(0, np.minimum(hi, p - 1) - lo + 1)
+        seen = seen + np.where(pre, p - inside, 0)
+    return int(seen.sum())
+
+
+def flash_attention_cost(b: int, s: int, t: int, h: int, kvh: int, hd: int, itemsize: int,
+                         *, causal: bool = True, window: int | None = None,
+                         prefix_len: int = 0, return_lse: bool = False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one K3 forward launch: the two products of every
+    visible pair and query head, 4 hd each; q read and the output written,
+    k and v read once (and each row's float32 lse written with
+    ``return_lse``)."""
+    pairs = visible_pairs(s, t, causal=causal, window=window, prefix_len=prefix_len)
+    nbytes = (2 * b * s * h * hd + 2 * b * t * kvh * hd) * itemsize
+    return 4.0 * hd * h * b * pairs, float(nbytes + (4 * b * h * s if return_lse else 0))
+
+
+def flash_attention_bwd_cost(b: int, s: int, t: int, h: int, kvh: int, hd: int,
+                             itemsize: int, *, window: int | None = None,
+                             prefix_len: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch of K3's backward: the five products of
+    every visible pair and query head (S, dP, dV, dK, dQ; 10 hd); q, out,
+    dout read and dq written, k and v read and dk, dv written."""
+    pairs = visible_pairs(s, t, window=window, prefix_len=prefix_len)
+    return (10.0 * hd * h * b * pairs,
+            float((4 * b * s * h * hd + 4 * b * t * kvh * hd) * itemsize))
 
 
 def _check_mask_args(causal: bool, window: int | None, prefix_len: int) -> None:
@@ -243,7 +287,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0, return_lse: bool = False):
     """GQA attention forward; K3 on the card, the plain version on the
     CPU.  With ``return_lse``: (out, lse), lse each row's log-sum-exp of
-    its logits, (B, H, S) float32 on the card."""
+    its logits, (B, H, S) float32 on the card.  On the meta device it
+    returns outputs of the right shapes, launches nothing and reports
+    :func:`flash_attention_cost` to the active counter (``roofline.count``),
+    as a launch on the card does."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
                                    causal=causal, window=window,
@@ -275,6 +322,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if return_lse else None)
+    cost = flash_attention_cost(b, s, t, h, kvh, hd, q.element_size(), causal=causal,
+                                window=window, prefix_len=prefix_len, return_lse=return_lse)
+    if q.device.type == "meta":
+        count.kernel("flash_attention", *cost)
+        return (out, lse) if return_lse else out
     lib = _lib()
     # the launch function launches into, and sets attributes on, the
     # current card: make it the tensor's, which may be another card
@@ -286,6 +338,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             build.stream(q.device))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
+    count.kernel("flash_attention", *cost)
     if win:
         flash_attention.mask_launches["window"] += 1
     if prefix:
@@ -368,7 +421,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return_lse=True)``) for the output gradient ``dout``: the backward
     kernel on the card (causal only; bfloat16 or float32; hd in
     :data:`BWD_HEAD_DIMS`), else it raises; :func:`flash_attention_bwd_ref`
-    on the CPU."""
+    on the CPU; on the meta device shapes only, reporting
+    :func:`flash_attention_bwd_cost` to the active counter."""
     kw = dict(scale=scale, softcap=softcap, causal=causal, window=window,
               prefix_len=prefix_len)
     if q.device.type == "cpu":
@@ -405,6 +459,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16 and hd in BWD_HOPPER_HEAD_DIMS and h > kvh:
         # dK and dV per query head, summed over each group by the kernel
         ws = torch.empty(2, b, t, h, hd, dtype=torch.float32, device=q.device)
+    cost = flash_attention_bwd_cost(b, s, t, h, kvh, hd, q.element_size(), window=window,
+                                    prefix_len=prefix_len)
+    if q.device.type == "meta":
+        count.kernel("flash_attention_bwd", *cost)
+        return dq, dk, dv
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         code = lib.repro_flash_attention_bwd(
@@ -415,6 +474,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             build.stream(q.device))
     build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    count.kernel("flash_attention_bwd", *cost)
     return dq, dk, dv
 
 

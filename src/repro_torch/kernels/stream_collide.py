@@ -25,6 +25,7 @@ from ..core import collision as col
 from ..core.lattice import Lattice
 from ..core.tiling import (NEIGHBOR_OFFSETS, SOLID, Tiling,
                            neighbor_offset_index, node_order_permutation)
+from ..roofline import count
 from . import build
 from .collide import collide_block_ref, collision_args
 
@@ -158,6 +159,21 @@ def stream_collide_tiles_ref(f, node_types, neighbors, lat: Lattice,
     return out
 
 
+def stream_collide_cost(tiles: int, lat: Lattice, cfg: col.CollisionConfig,
+                        itemsize: int, n: int = 64, mode: str = "full") -> tuple[float, float]:
+    """(FLOPs, bytes) of one K1 launch over ``tiles`` tiles of ``n`` nodes:
+    each tile's Q n values read and written once, its node types (uint8,
+    and the scratch row's) and (27,) int32 neighbour row read, the static
+    (Q, n) int32 perm and int8 slot tables read once; the collision of every
+    slot in ``full`` mode (``model_flops_per_node``).  ``rw_only`` moves the
+    values only."""
+    values = 2 * tiles * lat.q * n * itemsize
+    if mode == "rw_only":
+        return 0.0, float(values)
+    flops = tiles * n * col.model_flops_per_node(cfg, lat) if mode == "full" else 0
+    return float(flops), float(values + (tiles + 1) * n + tiles * 27 * 4 + lat.q * n * 5)
+
+
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("stream_collide")
@@ -183,7 +199,9 @@ def stream_collide_tiles(f, node_types, neighbors, lat: Lattice,
                 step never writes row T, so a caller that ping-pongs two
                 such buffers keeps both scratch rows zero.  Allocated when
                 not given.
-    Returns the post-step (T+1, Q, n) state, scratch row zero.
+    Returns the post-step (T+1, Q, n) state, scratch row zero.  On the
+    meta device: the output's shape only, :func:`stream_collide_cost`
+    reported to the active counter (``roofline.count``).
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
@@ -206,8 +224,12 @@ def stream_collide_tiles(f, node_types, neighbors, lat: Lattice,
         out = torch.empty_like(f)
         out[t1 - 1].zero_()
     build.check_tensor(out, "out", dev, f.dtype, f.shape)
-    if out.data_ptr() == f.data_ptr():
+    if dev.type != "meta" and out.data_ptr() == f.data_ptr():
         raise ValueError("out must not alias f")
+    cost = stream_collide_cost(t1 - 1, lat, cfg, f.element_size(), n, mode)
+    if dev.type == "meta":
+        count.kernel("stream_collide_tiles", *cost)
+        return out
     perms, slots = _device_tables(lat, a, node_order, dev)
     if mode == "full":
         a_mat, args = collision_args(lat, cfg, force, f)
@@ -224,6 +246,7 @@ def stream_collide_tiles(f, node_types, neighbors, lat: Lattice,
             build.stream(dev))
     build.check(lib, code, "stream_collide_tiles")
     stream_collide_tiles.launches += 1
+    count.kernel("stream_collide_tiles", *cost)
     return out
 
 

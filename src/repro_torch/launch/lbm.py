@@ -18,6 +18,12 @@
     PYTHONPATH=src python -m repro_torch.launch.lbm --case duct --device cpu \
         --backend gather --split-stream --metrics-out m.jsonl --trace t.json
 
+    # the dry-run: one step of the production slab meshes (16 or 32 slabs
+    # of a deepened duct, one an H100) counted on the meta device; the
+    # reference's gather backend by default, --backend fused for K1's path
+    PYTHONPATH=src python -m repro_torch.launch.lbm --dryrun --mesh both \
+        --out results/lbm_dryrun.json
+
 The run warms up with ``--steps`` steps, resets to t = 0 and times
 ``--steps`` steps.  On the card the time comes from CUDA events around the
 launch loop; on the CPU from the host clock.  It prints MFLUPS, the
@@ -31,13 +37,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import hw, obs
 from repro_torch.core import collision as C
 from repro_torch.core.boundary import BoundarySpec
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM
@@ -46,7 +54,8 @@ from repro_torch.data import geometry as geo
 from repro_torch.dist.lbm import ShardedLBM
 from repro_torch.kernels.collide import collide_tiles
 from repro_torch.kernels.stream_collide import stream_collide_tiles
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.roofline.analysis import collective_time
 
 
 @dataclasses.dataclass
@@ -100,6 +109,78 @@ def make_case(name: str, scale: int = 1) -> Case:
                     periodic=(True, False, True), lattice="D2Q9",
                     force=(1e-5, 0.0, 0.0))
     raise ValueError(f"unknown case {name!r}; expected one of {CASES}")
+
+
+def dryrun(multi_pod: bool, collision: str = "lbgk", fluid: str = "incompressible",
+           verbose: bool = True, node_order: str = "canonical",
+           split_stream: bool = False, backend: str = "gather") -> dict:
+    """One step of the slab-sharded engine on a production mesh, counted
+    for one H100 a slab on the meta device (``ShardedLBM.count_step``; the
+    reference lowers and compiles it for a TPU pod): 16 slabs over "data"
+    (32 over "pod" x "data" with ``multi_pod``) of the duct deepened so that
+    every slab holds >= 2 tile layers, float32.  The per-device figures are
+    the busiest slab's.  Returns the reference's keys; ``metrics`` holds
+    the engine's model metrics under the runtime's names."""
+    mesh = make_production_mesh(multi_pod)
+    axis = "pod,data" if multi_pod else "data"
+    slabs = 2 * 16 if multi_pod else 16        # slab axis = pod x data
+    case = make_case("duct", scale=1)
+    # deepen z so every slab holds >= 2 tile layers
+    reps = max(1, (slabs * 2 * 4) // case.geometry.shape[2] + 1)
+    g = np.concatenate([case.geometry] * reps, axis=2)
+    cfg = LBMConfig(
+        collision=C.CollisionConfig(model=collision, fluid=fluid, tau=0.6),
+        layout_scheme="paper" if backend == "gather" else "xyz", dtype="float32",
+        boundaries=case.boundaries, periodic=case.periodic, node_order=node_order,
+        split_stream=split_stream, backend=backend)
+    t0 = time.time()
+    eng = ShardedLBM(g, cfg, slabs=slabs, devices="meta")
+    counts = eng.count_step(axis)
+    dt = time.time() - t0
+    c = max(counts, key=lambda k: (k.bytes, k.flops))
+    n_own, q = eng.plan.n_fluid_own, eng.lat.q
+    # paper Eqn (10): minimum bytes per node per step = 2 q n_d
+    min_bytes_global = 2 * q * eng.dtype.itemsize * n_own
+    terms = {"t_compute": c.flops / hw.PEAK_FLOPS[eng.dtype],
+             "t_memory": c.bytes / hw.HBM_BYTES_PER_S,
+             "t_collective": collective_time(mesh, c.coll_by_axis())}
+    dominant = max(terms, key=terms.get)
+    fracs = eng.stream_fracs
+    out = {
+        "mesh": mesh.name, "chips": mesh.chips, "slabs": eng.plan.n_dev,
+        "geometry": list(g.shape), "fluid_nodes": n_own,
+        "tile_utilisation": round(eng.plan.tile_utilisation, 4),
+        "interior_frac": round(fracs["interior_frac"], 4),
+        "frontier_frac": round(fracs["frontier_frac"], 4),
+        "bounce_frac": round(fracs["bounce_frac"], 4),
+        "node_order": node_order, "split_stream": split_stream, "backend": backend,
+        "flops_per_device": c.flops, "bytes_per_device": c.bytes,
+        "coll_bytes_per_device": c.collective_bytes, "coll_by_op": c.coll_by_op(),
+        "min_bytes_per_device": min_bytes_global / eng.plan.n_dev,
+        "bw_efficiency_model": (min_bytes_global / eng.plan.n_dev) / max(c.bytes, 1.0),
+        **terms, "dominant": dominant, "peak_bytes_per_device": float(c.peak),
+        "kernels": {k: list(v) for k, v in c.kernels.items()},
+        "count_s": round(dt, 1), "ok": True,
+    }
+    # the runtime's metric names, so that modelled and measured join on a
+    # key, plus the counted per-device figures
+    out["metrics"] = {**eng.model_metrics(),
+                      "lbm.bw.eqn10_fraction_hlo": out["bw_efficiency_model"],
+                      "lbm.bytes.hlo_per_device": float(c.bytes)}
+    reg = obs.get_metrics()
+    if reg.enabled:
+        for name, v in out["metrics"].items():
+            reg.gauge(name, mesh=out["mesh"]).set(v)
+    if verbose:
+        print(f"[LBM x {out['mesh']}] OK slabs={out['slabs']} geom={out['geometry']} "
+              f"fluid={n_own:,} backend={backend}")
+        print(f"  eta_t={out['tile_utilisation']} interior={out['interior_frac']} "
+              f"frontier={out['frontier_frac']} bounce={out['bounce_frac']}")
+        print(f"  terms: compute={terms['t_compute'] * 1e6:.1f}us "
+              f"memory={terms['t_memory'] * 1e6:.1f}us "
+              f"collective={terms['t_collective'] * 1e6:.1f}us -> dominant={dominant}; "
+              f"Eqn10-min/counted bytes={out['bw_efficiency_model']:.3f}")
+    return out
 
 
 def launch_counts() -> dict[str, int]:
@@ -211,6 +292,12 @@ def run_local(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dryrun", action="store_true",
+                    help="count one step of the production slab meshes on the meta "
+                         "device (no card) instead of running")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both",
+                    help="the dry-run's mesh: 16 slabs, 32, or both")
+    ap.add_argument("--out", default=None, help="the dry-run's JSON output path")
     ap.add_argument("--case", default="duct", choices=list(CASES))
     ap.add_argument("--scale", type=int, default=1)
     ap.add_argument("--order", default="zmajor", choices=list(TILE_ORDERS),
@@ -224,8 +311,10 @@ def main(argv=None):
     ap.add_argument("--fluid", default="incompressible",
                     choices=["incompressible", "quasi_compressible"])
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
-    ap.add_argument("--backend", default="fused", choices=["gather", "fused"],
-                    help="fused: kernel K1; gather: gather streaming + K2")
+    ap.add_argument("--backend", default=None, choices=["gather", "fused"],
+                    help="fused: kernel K1; gather: gather streaming + K2 "
+                         "(default: fused, and gather for --dryrun, as the "
+                         "reference's dry-run)")
     ap.add_argument("--split-stream", action="store_true", dest="split_stream",
                     help="split-phase streaming: static interior permutation "
                          "+ compact frontier tables (gather backend only)")
@@ -244,6 +333,18 @@ def main(argv=None):
     if args.metrics_out or args.trace:
         # before the engine is built, so construction spans are captured
         obs.enable(metrics=True, trace=bool(args.trace))
+    if args.dryrun:
+        meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+        results = [dryrun(mp, args.collision, args.fluid, node_order=args.node_order,
+                          split_stream=args.split_stream, backend=args.backend or "gather")
+                   for mp in meshes]
+        if args.out:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        write_obs_outputs(args)
+        return 0
+    args.backend = args.backend or "fused"
     run_local(args)
     write_obs_outputs(args)
     return 0

@@ -8,16 +8,66 @@
   ``make_host_mesh(model_axis)``; the rules of ``repro_torch.dist.sharding``
   map onto its axes).
 
-The reference's production meshes (TPU pods of 256 and 512 chips) serve
-its dry-run and have no counterpart yet.
+* :func:`make_production_mesh`: the dry-run's production meshes, as a
+  description only (:class:`MeshSpec`: no process group, no device): the
+  reference's (16, 16) ("data", "model") of 256 chips and (2, 16, 16)
+  ("pod", "data", "model") of 512, here as H100s, 8 to an NVLink node with
+  "model" innermost (ranks r and r + 1 differ in "model").
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A mesh described, not built: its shape, its axis names (the last
+    innermost: consecutive ranks), and the cards a node holds."""
+    shape: tuple
+    axis_names: tuple
+    cards_per_node: int = 8
+
+    @property
+    def chips(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(n) for n in self.shape)
+
+    def size(self) -> int:
+        return self.chips
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)] if axis in self.axis_names else 1
+
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def spans_nodes(self, axis: str) -> bool:
+        """Whether the ranks along ``axis`` (the others fixed) sit in more
+        than one node."""
+        if axis not in self.axis_names:
+            return False
+        i = self.axis_names.index(axis)
+        stride = math.prod(self.shape[i + 1:])
+        return len({k * stride // self.cards_per_node for k in range(self.shape[i])}) > 1
+
+
+def make_production_mesh(multi_pod: bool = False) -> MeshSpec:
+    """The reference's production mesh as H100s: (16, 16) ("data",
+    "model"), or (2, 16, 16) ("pod", "data", "model") with ``multi_pod``;
+    8 cards a node, "model" innermost."""
+    if multi_pod:
+        return MeshSpec((2, 16, 16), ("pod", "data", "model"))
+    return MeshSpec((16, 16), ("data", "model"))
 
 
 def make_host_mesh(slabs: int | None = None, device="cuda") -> list[torch.device]:
@@ -59,5 +109,6 @@ def make_lm_mesh(data: int, model: int, device="cuda") -> DeviceMesh:
     return init_device_mesh(dev.type, (data, model), mesh_dim_names=("data", "model"))
 
 
-def mesh_chip_count(mesh: DeviceMesh) -> int:
+def mesh_chip_count(mesh) -> int:
+    """Cards of a ``DeviceMesh`` or a :class:`MeshSpec`."""
     return mesh.size()

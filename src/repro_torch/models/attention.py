@@ -28,7 +28,13 @@ sequence before the projections and the output reduce-scattered back onto
 the rank's shard after ``wo`` (an all-reduce in decode).  Where the KV
 heads do not divide by M (``"cols"``), each rank's column slice of the k/v
 projections is gathered and it attends with the KV heads its own query
-heads read; the cache then holds every KV head on every rank.
+heads read; the cache then holds every KV head on every rank.  Where the
+query heads do not divide by M (starcoder2's 24, qwen1.5's 40, gemma2's
+and paligemma's 8 over the production mesh's 16), ``wq``'s column shard
+cuts a head: the q projection is gathered over "model" too, every rank
+attends with every head (duplicate work, which the dry-run's useful-FLOPs
+ratio shows), and each rank takes its own columns of the output before
+``wo``'s row shard (:func:`cut_heads`).
 """
 from __future__ import annotations
 
@@ -128,30 +134,40 @@ def _attend(q, k, v, cfg: AttnConfig):
 # --------------------------------------------------------------------------
 # over the ranks of a data row
 # --------------------------------------------------------------------------
+def cut_heads(cfg: AttnConfig, M: int) -> bool:
+    """Whether ``wq``'s column shard over ``M`` ranks cuts a query head."""
+    return M > 1 and cfg.n_heads % M != 0
+
+
 def _qkv(ps: list, hs: list, cfg: AttnConfig, positions, ranks: list, mode: str):
-    """q (B, S, H/M, hd) roped, and k, v as the cache holds them: (B, S,
-    KVH/M, hd) in ``"heads"`` mode, else all KVH heads (``"cols"``: each
-    rank's column slice of the projections, gathered over "model").  A
-    rank adds the bias columns of its own heads (the stored leaves are
-    whole)."""
+    """q (B, S, H/M, hd) roped (all H heads where a shard cuts a head:
+    the column slices gathered over "model", :func:`cut_heads`), and k, v
+    as the cache holds them: (B, S, KVH/M, hd) in ``"heads"`` mode, else
+    all KVH heads (``"cols"``: each rank's column slice of the
+    projections, gathered over "model").  A rank adds the bias columns of
+    its own columns (the stored leaves are whole)."""
     b, s, _ = hs[0].shape
     hd = cfg.head_dim
+    cut = cut_heads(cfg, ranks[0].M)
     qs, ks, vs = [], [], []
     for p, h, r in zip(ps, hs, ranks):
-        hl = cfg.n_heads // r.M
         q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
         if cfg.qkv_bias:
-            cols = p["wk"].shape[1]
+            cols, qcols = p["wk"].shape[1], p["wq"].shape[1]
             kv = slice(r.m * cols, (r.m + 1) * cols) if mode != "whole" else slice(None)
-            q = q + p["bq"][r.m * hl * hd:(r.m + 1) * hl * hd]
+            q = q + p["bq"][r.m * qcols:(r.m + 1) * qcols]
             k = k + p["bk"][kv]
             v = v + p["bv"][kv]
-        qs.append(apply_rope(q.reshape(b, s, hl, hd), positions, cfg.rope_fraction,
-                             cfg.rope_theta))
+        qs.append(q)
         ks.append(k)
         vs.append(v)
+    comm = ranks[0].comm
+    if cut:
+        qs = comm.gather(qs, -1)
+    hq = cfg.n_heads if cut else cfg.n_heads // ranks[0].M
+    qs = [apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_fraction, cfg.rope_theta)
+          for q in qs]
     if mode == "cols":
-        comm = ranks[0].comm
         ks, vs = comm.gather(ks, -1), comm.gather(vs, -1)
     kvh = cfg.n_kv_heads // ranks[0].M if mode == "heads" else cfg.n_kv_heads
     ks = [apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_fraction, cfg.rope_theta)
@@ -164,7 +180,7 @@ def kv_for_rank(k: torch.Tensor, cfg: AttnConfig, r, mode: str) -> torch.Tensor:
     K3's grouping: a slice where the rank's heads read whole groups of
     KV heads (rank r of starcoder2's 4 reads KV head r // 2), else each KV
     head repeated once per query head."""
-    if mode == "heads":
+    if mode == "heads" or cut_heads(cfg, r.M):
         return k
     g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // r.M
     first = r.m * hl
@@ -176,9 +192,16 @@ def kv_for_rank(k: torch.Tensor, cfg: AttnConfig, r, mode: str) -> torch.Tensor:
 
 
 def _out(ps: list, outs: list, ranks: list, sp: bool) -> list:
-    """The row-parallel ``wo`` over each rank's heads, reduced."""
-    return reduce_seq(ranks[0].comm, [o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
-                                      for p, o in zip(ps, outs)], sp)
+    """The row-parallel ``wo`` over each rank's heads (its own columns of
+    every head's output, where a shard cuts a head), reduced."""
+    parts = []
+    for p, o, r in zip(ps, outs, ranks):
+        o = o.reshape(o.shape[0], o.shape[1], -1)
+        rows = p["wo"].shape[0]
+        if o.shape[-1] != rows:
+            o = o[..., r.m * rows:(r.m + 1) * rows]
+        parts.append(o @ p["wo"])
+    return reduce_seq(ranks[0].comm, parts, sp)
 
 
 def attention_ranks(ps: list, hs: list, cfg: AttnConfig, positions, ranks: list,

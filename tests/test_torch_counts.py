@@ -86,3 +86,73 @@ def test_channel_tile_utilisations(kind):
 def test_open_channel3d():
     for shape in ((1, 1, 1), (4, 8, 12), (17, 5, 9)):
         _same(p_geo.open_channel3d(*shape), r_geo.open_channel3d(*shape))
+
+
+# --------------------------------------------------------------------------
+# the tiling's locality and overhead accounting, the stream tables' link
+# distances, and the collision's FLOP count (ROADMAP §1 item 8)
+# --------------------------------------------------------------------------
+from repro.core import collision as r_col  # noqa: E402
+from repro.core import streaming as r_st  # noqa: E402
+from repro.core import tiling as r_til  # noqa: E402
+from repro_torch.core import collision as p_col  # noqa: E402
+from repro_torch.core import streaming as p_st  # noqa: E402
+from repro_torch.core import tiling as p_til  # noqa: E402
+
+GEOMETRIES = {"channel": (4, 8, 12), "odd": (17, 5, 9),
+              "duct": lambda g: g.duct(12, 10, 16)}
+
+
+def _geometry(mod, name):
+    shape = GEOMETRIES[name]
+    return shape(mod) if callable(shape) else mod.open_channel3d(*shape)
+
+
+@pytest.mark.parametrize("node_order", ("canonical", "sfc"))
+@pytest.mark.parametrize("order", ("zmajor", "morton", "hilbert"))
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_tiling_locality_and_overheads(geometry, order, node_order):
+    rt = r_til.tile_geometry(_geometry(r_geo, geometry), 4, order=order, node_order=node_order)
+    pt = p_til.tile_geometry(_geometry(p_geo, geometry), 4, order=order, node_order=node_order)
+    assert pt.overhead_generic() == rt.overhead_generic()
+    for args in ((), (19, 4), (9, 8, 2)):
+        assert pt.overhead_memory(*args) == rt.overhead_memory(*args)
+    _same(pt.neighbor_index_distances(), rt.neighbor_index_distances())
+    assert pt.mean_neighbor_index_distance() == rt.mean_neighbor_index_distance()
+    assert pt.neighbor_index_distance_hist() == rt.neighbor_index_distance_hist()
+    assert pt.locality_metrics() == rt.locality_metrics()
+    for lat in (None, "D3Q19", "D2Q9"):
+        e = None if lat is None else r_lat.get_lattice(lat).e
+        _same(pt.intra_tile_link_distances(e), rt.intra_tile_link_distances(e))
+        assert pt.mean_intra_tile_link_distance(e) == rt.mean_intra_tile_link_distance(e)
+    dense = np.random.default_rng(0).standard_normal((2,) + pt.orig_shape)
+    _same(p_til.tile_field(pt, dense), r_til.tile_field(rt, dense))
+
+
+def test_pow2_hist():
+    for counts in ([], [0], [3], [1, 0, 2, 0, 0, 7], list(range(10))):
+        assert p_til.pow2_hist(np.asarray(counts)) == r_til.pow2_hist(np.asarray(counts))
+
+
+@pytest.mark.parametrize("periodic", ((False, False, False), (False, False, True)))
+@pytest.mark.parametrize("order", ("zmajor", "morton"))
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_stream_table_link_distances(geometry, order, periodic):
+    lat_r, lat_p = r_lat.get_lattice("D3Q19"), p_lat.get_lattice("D3Q19")
+    rt = r_til.tile_geometry(_geometry(r_geo, geometry), 4, order=order)
+    pt = p_til.tile_geometry(_geometry(p_geo, geometry), 4, order=order)
+    want = r_st.build_stream_tables(rt, lat_r, "xyz", periodic)
+    got = p_st.build_stream_tables(pt, lat_p, "xyz", periodic)
+    assert got.mean_link_distance == want.mean_link_distance
+    assert got.link_distance_hist == want.link_distance_hist
+    assert got.index_entries_mono == want.index_entries_mono
+
+
+@pytest.mark.parametrize("lattice", LATTICES)
+def test_model_flops_per_node(lattice):
+    for model in ("lbgk", "lbmrt"):
+        for fluid in ("incompressible", "quasi_compressible"):
+            assert p_col.model_flops_per_node(
+                p_col.CollisionConfig(model=model, fluid=fluid), p_lat.get_lattice(lattice)) == \
+                r_col.model_flops_per_node(r_col.CollisionConfig(model=model, fluid=fluid),
+                                           r_lat.get_lattice(lattice))

@@ -98,11 +98,12 @@ def test_ranked_engine_gives_the_unsharded_tokens(arch, mesh, capfd):
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "paligemma-3b"])
 def test_ranked_serving_refuses_other_families(arch):
-    """Only what cannot be split is refused: zamba2's and paligemma's 4
-    query heads over 8 model ranks (rwkv6 has no attention: its heads are
-    gathered where a column shard cuts one), 4 slots over 3 data rows, and
-    the audio family (F6)."""
-    if arch == "rwkv6-3b":
+    """Only what cannot be split is refused: zamba2's 4 query heads over 8
+    model ranks (rwkv6 has no attention: its heads are gathered where a
+    column shard cuts one; paligemma's cut query heads are gathered and
+    attended whole, ``models.attention.cut_heads``), 4 slots over 3 data
+    rows, and the audio family (F6)."""
+    if arch in ("rwkv6-3b", "paligemma-3b"):
         tp.check_tp(get_smoke(arch), 8)
     else:
         with pytest.raises(NotImplementedError, match="query heads do not split"):

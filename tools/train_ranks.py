@@ -53,11 +53,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.configs import get_config, get_smoke, param_stats  # noqa: E402
 from repro_torch.hw import BF16_PEAK  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
-from repro_torch.models.model import CausalLM  # noqa: E402
 
 # NCCL kernels of a profiled step by collective (all-to-all runs as grouped
 # sends and receives)
@@ -89,44 +88,27 @@ def attention_calls(cfg) -> int:
     return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
 
 
-def attention_pairs(cfg, s: int) -> float:
-    """Visible (query, key) pairs of one sequence of ``s`` positions summed
-    over a forward's attention calls: gemma2's local layers under their
-    window, a vlm's under its prefix square, else causal."""
-    pos = torch.arange(s)
-
-    def pairs(**kw) -> float:
-        return float(k3.visible_mask(pos, pos, **kw).sum())
-
+def attention_shapes(cfg) -> list[tuple[int, int]]:
+    """(window or None, prefix) of each attention call of a forward: gemma2's
+    local layers under their window, a vlm's under its prefix square, else
+    causal."""
     if cfg.layer_pattern == "local_global":
-        return cfg.n_layers // 2 * (pairs(window=cfg.local_window) + pairs())
+        return [(cfg.local_window, 0), (None, 0)] * (cfg.n_layers // 2)
     prefix = cfg.prefix_tokens if cfg.family == "vlm" else 0
-    return attention_calls(cfg) * pairs(prefix_len=prefix)
+    return [(None, prefix)] * attention_calls(cfg)
 
 
-def active_params(model, cfg) -> int:
-    """N of a step's 6 N tokens: the parameters one token's forward reads,
-    each as often as it runs -- a MoE layer's routed experts count top_k of
-    n_experts, zamba2's shared block counts once per call."""
-    n = model.param_count()
-    if cfg.family == "moe":
-        e, k = cfg.moe.n_experts, cfg.moe.top_k
-        for block in model.layers["moe_layers"]:
-            routed = sum(p.numel() for p in block.moe.experts.parameters())
-            n -= routed // e * (e - k)
-    if cfg.family == "hybrid":
-        shared = sum(p.numel() for p in model.layers["shared"].parameters())
-        n += (attention_calls(cfg) - 1) * shared
-    return n
-
-
-def train_flops(cfg, batch: int, seq: int) -> tuple[float, int]:
-    """A step's counted flops (6 N positions plus the attention's products)
-    and N, from a model on the meta device."""
-    meta = CausalLM(cfg, device="meta", seed=None)
-    n_active = active_params(meta, cfg)
-    attn = 3 * 4.0 * cfg.hd * cfg.n_heads * batch * attention_pairs(cfg, seq)
-    return 6.0 * n_active * batch * seq + attn, n_active
+def train_flops(cfg, batch: int, seq: int) -> tuple[float, int, float]:
+    """A step's model FLOPs, N and the attention's part: 6 N positions, N
+    the active parameters (``configs.param_stats``), plus the attention's
+    products forward and backward, 3 x K3's forward FLOPs
+    (``kernels.flash.flash_attention_cost``) over a forward's attention
+    calls."""
+    _, n_active = param_stats(cfg)
+    attn = 3 * sum(k3.flash_attention_cost(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.hd, 2, window=w, prefix_len=p)[0]
+                   for w, p in attention_shapes(cfg))
+    return 6.0 * n_active * batch * seq + attn, n_active, attn
 
 
 class RankRun(NamedTuple):
@@ -280,7 +262,7 @@ def rank_summary(run: RankRun, results: list[dict], label: str = "") -> dict:
     it a 1 x 1 ``run``)."""
     cfg = run.config()
     world = run.data * run.model
-    flops, n_active = train_flops(cfg, run.batch, run.seq)
+    flops, n_active, _ = train_flops(cfg, run.batch, run.seq)
     step_ms = results[0]["step_ms"]
     tokens = run.batch * run.seq
     depth = f", depth cut to {cfg.n_layers} layers" if run.layers else ""
