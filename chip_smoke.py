@@ -30,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    Launch counters are zeroed just before each run and read just after;
    each kernel of the run must have launched once per step.  At the main
    path's shapes each kernel is held against its plain version and timed,
-   beside its bound;
+   beside its bound: K1 on the run's own state, the NEBB pass kernel
+   (``csrc/nebb_pass.cu``) over the inlet and outlet nodes on K1's output
+   of that state;
 4b. drive the slab-sharded engine (``repro_torch.dist.lbm.ShardedLBM``) on
    the same case, fused LBGK incompressible, in float64 and float32, with D
    = 2 and D = 4 slabs on the one card: after 20 steps from t = 0 its owned
@@ -62,7 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    service's B*T tiles on its state after the run: each replica's rows
    must equal, bit for bit, a single launch over that replica's state
    with the engine's (T, 27) tables, and match the plain version on the
-   same input.  K1 at B = 4 is timed beside its bytes bound; a profiler
+   same input; the NEBB pass kernel over every replica's boundary nodes
+   of that output against its plain version, and its launches in the run
+   equal to the group steps too.  K1 and the NEBB kernel at B = 4 are
+   timed beside their bytes bounds; a profiler
    pass over 5 ensemble steps splits a step into K1 and the NEBB pass,
    and a profiled rerun of the service (a new service on the same
    registry) gives its device idle share and the device time of its
@@ -267,8 +272,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``ServeEngine(slots=4)`` on the same weights against the counted
    decode's t_memory.  No measured step may come in under its counted bound
    by more than ``DRYRUN_SLACK``;
-12. print the ``kernels`` JSON line (K1 and K2 as the phases above ran
-   them, K3 once for each serving run that attends, named for its
+12. print the ``kernels`` JSON line (K1, K2 and the NEBB pass kernel as
+   the phases above ran them, K3 once for each serving run that attends, named for its
    mask or path: ``flash_attention``, ``_window``, ``_prefix``, ``_moe``
    at deepseek's hd 128, ``_hd80`` at zamba2's hd 80, ``_tp`` at
    moonshot's per-rank shape under tensor parallelism, ``_tp_paligemma``,
@@ -349,6 +354,7 @@ from repro_torch.data.tokens import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.dist.comm import LocalComm  # noqa: E402
 from repro_torch.kernels import collide as k2  # noqa: E402
 from repro_torch.kernels import flash as k3  # noqa: E402
+from repro_torch.kernels import nebb_pass as nebb  # noqa: E402
 from repro_torch.kernels import stream_collide as k1  # noqa: E402
 from repro_torch.launch import lbm as launcher  # noqa: E402
 from repro_torch.launch import sim_serve  # noqa: E402
@@ -1174,8 +1180,9 @@ class Smoke:
         eng.run(WARM)
         eng.reset()
         seconds, launches = self._main_run(eng, STEPS)
-        if launches["stream_collide_tiles"] != STEPS:
-            raise AssertionError(f"K1 launched {launches} times in {STEPS} steps")
+        if launches["stream_collide_tiles"] != STEPS or launches["nebb_boundary_pass"] != STEPS:
+            raise AssertionError(f"K1 and the NEBB pass launched {launches} times in "
+                                 f"{STEPS} steps")
         f = eng.f
         if not bool(torch.isfinite(f).all()):
             raise AssertionError("non-finite state after the fused run")
@@ -1184,7 +1191,7 @@ class Smoke:
         nf, q, itemsize = eng.n_fluid_nodes, eng.lat.q, eng.dtype.itemsize
         gbs = 2 * q * nf * itemsize / sec / 1e9
         log(f"[main fused {dtype}] spheres scale 4: {eng.tiling.num_tiles} tiles "
-            f"({len(eng.backend._bc['tiles'])} with boundary nodes), "
+            f"({len(np.unique(eng.backend._bc.tiles.cpu().numpy()))} with boundary nodes), "
             f"{nf} fluid nodes, eta_t {eng.tiling.tile_utilisation:.3f}, set-up "
             f"{setup:.1f} s; {STEPS} steps in {seconds:.4f} s = {sec * 1e3:.4f} "
             f"ms/step, {eng.mflups(sec):.1f} MFLUPS, Eqn-10 {gbs:.1f} GB/s = "
@@ -1203,9 +1210,13 @@ class Smoke:
         want = k1.stream_collide_tiles_ref(*args)
         fluid = (b._types != SOLID)[:, None, :].expand_as(f)
         err = max_err(got, want, fluid)
-        del want, got
+        del want
         if not err <= TOL[eng.dtype]:
             raise AssertionError(f"K1 vs plain at full size: {err:.3e}")
+        # the NEBB pass on K1's output: the kernel into ``out``, the plain
+        # version into K1's copy
+        self.nebb_full(eng, f, out, got, launches["nebb_boundary_pass"], dtype)
+        del got
         ms = time_ms(lambda: k1.stream_collide_tiles(*args, out=out), 50,
                      label=f"K1 {dtype}")
         plain_ms = time_ms(lambda: k1.stream_collide_tiles_ref(*args), 3, 1,
@@ -1224,6 +1235,36 @@ class Smoke:
         log(f"[K1 {dtype} full size] |err| {err:.3e}, {ms:.4f} ms/launch "
             f"(bound {bms:.4f} ms by {by}, {bms / ms:.3f} of it), plain "
             f"{plain_ms:.2f} ms")
+
+    def nebb_full(self, eng, f, k1_out, k1_copy, launches: int, dtype: str) -> None:
+        """The NEBB pass at the main path's shapes, on K1's output of the
+        run's own state (in ``k1_out`` and a copy of it): the kernel against
+        its plain version, each timed, beside its bound by bytes."""
+        b = eng.backend
+        args = (eng.lat, eng.cfg.collision, eng.cfg.force, b._specs, b._bc)
+        got = nebb.nebb_boundary_pass(f, k1_out, *args)
+        torch.cuda.synchronize()
+        want = nebb.nebb_boundary_pass_ref(f, k1_copy, *args)
+        err = max_err(got, want)
+        if not err <= TOL[eng.dtype]:
+            raise AssertionError(f"NEBB kernel vs plain at full size: {err:.3e}")
+        ms = time_ms(lambda: nebb.nebb_boundary_pass(f, k1_out, *args), 50,
+                     label=f"NEBB {dtype}")
+        plain_ms = time_ms(lambda: nebb.nebb_boundary_pass_ref(f, k1_copy, *args), 5,
+                           label=f"NEBB plain {dtype}")
+        nodes = int(b._bc.src.shape[1])
+        flops, nbytes = nebb.nebb_pass_cost(nodes, eng.lat, eng.cfg.collision,
+                                            f.element_size())
+        bms, by = bound_ms(nbytes, flops, eng.dtype)
+        name = "nebb_boundary_pass" + ("" if dtype == "float64" else f"[{dtype}]")
+        self.kernels[name] = {
+            "name": name, "route": "cuda", "source": f"{SOURCE}/nebb_pass.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "nodes": nodes}
+        log(f"[NEBB {dtype} full size] {nodes} boundary nodes: |err| {err:.3e}, "
+            f"{ms:.4f} ms/launch (bound {bms:.4f} ms by {by}, {bms / ms:.3f} of it), "
+            f"plain {plain_ms:.2f} ms")
 
     def run_rw_only(self, case, dtype: str) -> None:
         eng = self._engine(case, dtype, backend="fused", kernel_mode="rw_only")
@@ -1587,6 +1628,7 @@ class Smoke:
         ens, eng = group.ensemble, group.entry.engine
         rec = obs.SpanRecorder()                # host spans only: no sync
         k1.stream_collide_tiles.launches = 0
+        nebb.nebb_boundary_pass.launches = 0
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         with obs.use(trace=rec):
@@ -1595,12 +1637,15 @@ class Smoke:
             stop.record()
             stop.synchronize()
         launches = k1.stream_collide_tiles.launches
+        nebb_launches = nebb.nebb_boundary_pass.launches
         wall = start.elapsed_time(stop) / 1e3
         group_steps = len(rec.find("sim.group.step"))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        if launches != group_steps or len(finished) != SIM_SESSIONS:
-            raise AssertionError(f"K1 launched {launches} times in {group_steps} "
-                                 f"group steps; {len(finished)} sessions finished")
+        if launches != group_steps or nebb_launches != group_steps \
+                or len(finished) != SIM_SESSIONS:
+            raise AssertionError(f"K1 launched {launches} times and the NEBB kernel "
+                                 f"{nebb_launches} in {group_steps} group steps; "
+                                 f"{len(finished)} sessions finished")
         drifts = [s.result["mass_drift"] for s in sorted(finished, key=lambda s: s.sid)]
         if not all(np.isfinite(drifts)):
             raise AssertionError(f"non-finite mass drift: {drifts}")
@@ -1647,6 +1692,29 @@ class Smoke:
             f"run: every replica's rows bit for bit a single launch over that "
             f"replica; max |err| against the plain version {err:.3e}")
 
+        # the NEBB pass over every replica's boundary nodes, on that K1
+        # output: the kernel against its plain version, and timed
+        nargs = (eng.lat, cfg.collision, cfg.force, b._specs, bc)
+        want = nebb.nebb_boundary_pass_ref(ens.f, got.clone(), *nargs)
+        nebb.nebb_boundary_pass(ens.f, got, *nargs)
+        nebb_err = max_err(got, want)
+        del want
+        if not nebb_err <= TOL[eng.dtype]:
+            raise AssertionError(f"NEBB kernel over {SIM_SLOTS} replicas {dtype} vs its "
+                                 f"plain version: |err| {nebb_err:.3e}")
+        nebb_ms = time_ms(lambda: nebb.nebb_boundary_pass(ens.f, got, *nargs), 50,
+                          label=f"NEBB B={SIM_SLOTS} {dtype}")
+        flops, nbytes = nebb.nebb_pass_cost(SIM_SLOTS * int(bc.src.shape[1]), eng.lat,
+                                            cfg.collision, eng.dtype.itemsize)
+        nebb_bms, _ = bound_ms(nbytes, flops, eng.dtype)
+        name = "nebb_boundary_pass" + ("" if dtype == "float64" else f"[{dtype}]")
+        self.kernels[name].update({
+            "bt_batch": SIM_SLOTS, "bt_ms": nebb_ms, "bt_bound_ms": nebb_bms,
+            "bt_launches": nebb_launches, "bt_max_abs_err": nebb_err})
+        log(f"[NEBB B={SIM_SLOTS} {dtype}] {SIM_SLOTS} x {bc.src.shape[1]} nodes: "
+            f"|err| {nebb_err:.3e}, {nebb_ms:.4f} ms/launch (bound {nebb_bms:.4f} ms, "
+            f"{nebb_bms / nebb_ms:.3f} of it); {nebb_launches} launches in the run")
+
         # K1 at B = 4 timed on the service's buffers, and profiler passes
         ms = time_ms(lambda: k1.stream_collide_tiles(*kargs, out=ens._spare), 50,
                      label=f"K1 B={SIM_SLOTS} {dtype}")
@@ -1667,7 +1735,7 @@ class Smoke:
             f"{self.kernels[name]['ms'] / t * 1e6:.4f} ns per "
             f"tile; per tile B={SIM_SLOTS} / single "
             f"{ms / bt / (self.kernels[name]['ms'] / t):.4f}; "
-            f"NEBB pass over {len(bc['tiles'])} tiles {prof}; the ensemble step "
+            f"NEBB pass over {SIM_SLOTS} x {bc.src.shape[1]} nodes {prof}; the ensemble step "
             f"alone {ens_ms:.4f} ms (CUDA events, median of 20), the service's "
             f"own work {step_ms - ens_ms:.4f} ms per service step")
         registry = svc.registry

@@ -9,8 +9,8 @@ one LBM iteration:
 * ``fused``  — the paper's contribution: the fused stream+collide kernel K1
   over state kept PERSISTENTLY in the kernel's packed (T+1, Q, n) layout.
   Two such buffers ping-pong; the kernel never writes the scratch row T, so
-  both keep it zero.  Open boundaries are a post-kernel pass over the tiles
-  that hold boundary nodes only.
+  both keep it zero.  Open boundaries are a post-kernel pass over the
+  boundary nodes only (``kernels.nebb_pass``: one kernel launch a step).
 
 Both produce the same physics (float64 parity to 1e-12 is pinned by the
 tests against the JAX package's gather engine).
@@ -36,6 +36,7 @@ import torch
 
 from ..kernels import build
 from ..kernels.collide import collide_tiles
+from ..kernels.nebb_pass import BoundaryNodes, nebb_boundary_pass
 from ..kernels.stream_collide import (build_neighbor_table,
                                       packed_gather_indices,
                                       stream_collide_tiles)
@@ -57,26 +58,36 @@ def make_backend(name: str, cfg, lat, tiling: Tiling,
     raise ValueError(f"unknown backend {name!r}; expected one of {BACKENDS}")
 
 
-def boundary_pass_tables(tiling: Tiling, lat, boundaries, periodic):
-    """Host-side tables for the fused backend's masked NEBB pass.
+def boundary_pass_tables(tiling: Tiling, lat, boundaries,
+                         periodic) -> BoundaryNodes | None:
+    """Host-side tables of the fused backend's NEBB pass: every node of a
+    declared boundary type once, in tile and slot order, with its spec
+    index and its Q pull sources (numpy :class:`BoundaryNodes`), or ``None``
+    when no node matches any declared boundary type.
 
-    Returns numpy ``(tiles (B,), packed_gather (Q, B, n), type_masks
-    (S, B, n), solid (B, n))`` restricted to the tiles that hold boundary
-    nodes, or ``None`` when no node matches any declared boundary type.
-    Only those B tiles' stream-table rows are built.
+    The sources are the rows of the packed gather (``packed_gather_indices``
+    of the stream tables, which fold in bounce-back and periodic edges) at
+    those nodes; only the tiles that hold them get stream-table rows.
     """
     types = tiling.node_types
     t, n = types.shape
-    node_bc = np.zeros_like(types, bool)
-    for tv, _ in boundaries:
-        node_bc |= types == tv
-    bt = np.nonzero(node_bc.any(axis=1))[0].astype(np.int32)
+    values = [tv for tv, _ in boundaries]
+    if len(set(values)) != len(values):
+        raise ValueError(f"boundary node types declared twice: {values}")
+    spec = np.full(types.shape, -1, np.int16)
+    for k, tv in enumerate(values):
+        spec[types == tv] = k
+    bt = np.nonzero((spec >= 0).any(axis=1))[0].astype(np.int32)
     if not len(bt):
         return None
+    if (t + 1) * lat.q * n >= 2 ** 31:
+        raise ValueError(f"{t} tiles: offsets into a replica pass int32")
     rows = build_stream_tables(tiling, lat, "xyz", periodic, tiles=bt)
-    packed = packed_gather_indices(rows.gather_idx, lat.q, t, n)
-    type_masks = np.stack([types[bt] == tv for tv, _ in boundaries])
-    return bt, packed, type_masks, types[bt] == SOLID
+    packed = packed_gather_indices(rows.gather_idx, lat.q, t, n)   # (Q, B, n)
+    bi, slots = np.nonzero(spec[bt] >= 0)
+    return BoundaryNodes(tiles=bt[bi], slots=slots.astype(np.int32),
+                         spec=spec[bt[bi], slots].astype(np.uint8),
+                         src=np.ascontiguousarray(packed[:, bi, slots]), num_tiles=t)
 
 
 def apply_split_stream(f_store, solid, *, intra, is_cross, nbr, case,
@@ -114,27 +125,6 @@ def apply_split_stream(f_store, solid, *, intra, is_cross, nbr, case,
             f_in[..., irregular_dst] = flat.index_select(-1, irregular_src)
         f_in = f_in.reshape(f_store.shape)
     return f_in.masked_fill(solid[None], 0.0)
-
-
-def nebb_boundary_pass(f_pre, out, lat, collision_cfg, force, specs,
-                       tiles, gather, type_masks, solid):
-    """The fused backend's post-kernel masked NEBB pass, in place on ``out``.
-
-    Re-streams ONLY the boundary tiles from the pre-step packed state
-    ``f_pre`` through the packed-layout ``gather``, applies the NEBB rebuild
-    per boundary spec, collision and solid masking, and writes those tiles
-    of ``out``.  The rebuild sees post-streaming, pre-collision values, as
-    the gather backend's in-line application does.
-    """
-    q, n = out.shape[-2], out.shape[-1]
-    with phase_scope("lbm.phase.boundary"):
-        f_in = torch.take(f_pre, gather).reshape(q, -1, n)     # (Q, B, n)
-        for mask, spec in zip(type_masks, specs):
-            f_in = apply_open_boundary(f_in, mask, spec, lat)
-        f_out, _, _ = col.collide(f_in, lat, collision_cfg, force)
-        f_out = f_out.masked_fill(solid[None], 0.0)
-        out[tiles] = f_out.movedim(0, 1)
-    return out
 
 
 class GatherBackend:
@@ -287,32 +277,22 @@ class FusedBackend:
         self._nbrs = torch.as_tensor(build_neighbor_table(tiling, cfg.periodic),
                                      device=device)
         self._solid = torch.as_tensor(tiling.node_types == SOLID, device=device)
-        self._bc = None
-        self._bc_np = (boundary_pass_tables(tiling, lat, cfg.boundaries,
-                                            cfg.periodic)
-                       if cfg.boundaries and cfg.kernel_mode == "full" else None)
-        if self._bc_np is not None:
-            self._bc = self._bc_tables(*self._bc_np)
+        bc = (boundary_pass_tables(tiling, lat, cfg.boundaries, cfg.periodic)
+              if cfg.boundaries and cfg.kernel_mode == "full" else None)
+        self._bc = None if bc is None else bc.to(device)
+        self._specs = tuple(spec for _, spec in cfg.boundaries)
         self._bufs: tuple[torch.Tensor, torch.Tensor] | None = None
         self._ens_tables: dict[int, tuple] = {}
 
-    def _bc_tables(self, tiles, gather, type_masks, solid) -> dict:
-        """The NEBB pass's tables on the device; indices in int64."""
-        dev = self.device
-        return {
-            "tiles": torch.as_tensor(tiles, dtype=torch.int64, device=dev),
-            "gather": torch.as_tensor(gather, dtype=torch.int64,
-                                      device=dev).reshape(-1),
-            "type_masks": torch.as_tensor(type_masks, device=dev),
-            "solid": torch.as_tensor(solid, device=dev),
-            "specs": tuple(spec for _, spec in self.cfg.boundaries),
-        }
-
     def load_kernel(self) -> None:
-        """Build (on a checkout's first run) and load K1's library where the
-        step launches it: on the card."""
+        """Build (on a checkout's first run, one nvcc each, together) and
+        load K1's library and, with boundary nodes, the NEBB pass's, where
+        the step launches them: on the card."""
         if self.device.type == "cuda":
-            build.load("stream_collide")
+            names = ("stream_collide",) + (("nebb_pass",) if self._bc is not None else ())
+            build.build_all(names)
+            for name in names:
+                build.load(name)
 
     # ------------------------------------------------------------ state
     def initial_state(self, feq_canon: torch.Tensor) -> torch.Tensor:
@@ -338,7 +318,7 @@ class FusedBackend:
     # ------------------------------------------------------------ step
     def _advance(self, f, out, types, nbrs, bc) -> torch.Tensor:
         """K1 from ``f`` into ``out``, then the NEBB pass over ``bc``'s
-        tiles."""
+        nodes."""
         cfg = self.cfg
         with phase_scope("lbm.phase.stream_collide"):
             stream_collide_tiles(f, types, nbrs, self.lat, cfg.collision,
@@ -350,14 +330,13 @@ class FusedBackend:
         return out
 
     def boundary_pass(self, f, out, bc=None) -> None:
-        """The NEBB pass alone over ``bc``'s tiles (default: the engine's;
-        none without boundary nodes), from the pre-step ``f`` into ``out``,
-        in place."""
+        """The NEBB pass alone over ``bc``'s nodes (default: the engine's;
+        none without boundary nodes) of every replica of ``f``, from the
+        pre-step ``f`` into ``out``, in place."""
         bc = self._bc if bc is None else bc
         if bc is not None:
             nebb_boundary_pass(f, out, self.lat, self.cfg.collision,
-                               self.cfg.force, bc["specs"], bc["tiles"],
-                               bc["gather"], bc["type_masks"], bc["solid"])
+                               self.cfg.force, self._specs, bc)
 
     def stream_collide(self, f: torch.Tensor) -> torch.Tensor:
         """K1 alone from ``f`` into the other buffer of the pair; a step is
@@ -374,32 +353,20 @@ class FusedBackend:
 
         Replica b's tiles occupy rows [b*T, (b+1)*T); the single scratch
         row moves to B*T.  The neighbour table gets the per-replica row
-        offset folded in (scratch references remapped to B*T), and the NEBB
-        tables the packed-flat offset ``b * T * Q * n``, built in int64 (it
-        passes 2**31 at B = 8 on the largest case), so
-        :func:`nebb_boundary_pass` runs unchanged over every replica's
-        boundary tiles.  Built once per batch size and shared by every
-        ensemble of this backend.
+        offset folded in (scratch references remapped to B*T).  The NEBB
+        tables are the engine's own: the pass takes B from the state's rows
+        and adds replica b's base ``b * T * Q * n`` in 64 bits (it passes
+        2**31 at B = 8 on the largest case).  Built once per batch size and
+        shared by every ensemble of this backend.
         """
         if batch in self._ens_tables:
             return self._ens_tables[batch]
         t, n = self.tiling.num_tiles, self.tiling.nodes_per_tile
-        q = self.lat.q
         nbrs = torch.cat([torch.where(self._nbrs == t, batch * t, self._nbrs + b * t)
                           for b in range(batch)])
         types = self._types.new_full((batch * t + 1, n), SOLID)
         types[:batch * t] = self._types[:t].repeat(batch, 1)
-        bc = None
-        if self._bc_np is not None:
-            bt, packed, type_masks, solid_b = self._bc_np
-            bc = self._bc_tables(
-                np.concatenate([bt.astype(np.int64) + b * t
-                                for b in range(batch)]),
-                np.concatenate([packed.astype(np.int64) + b * t * q * n
-                                for b in range(batch)], axis=1),
-                np.concatenate([type_masks] * batch, axis=1),
-                np.concatenate([solid_b] * batch))
-        tables = (types, nbrs, bc)
+        tables = (types, nbrs, self._bc)
         self._ens_tables[batch] = tables
         return tables
 
@@ -414,7 +381,7 @@ class FusedBackend:
     def ensemble_step(self, f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """One launch of K1 over all B*T tiles from ``f`` into ``out`` (a
         buffer of the same shape whose scratch row is zero), then the NEBB
-        pass over every replica's boundary tiles; B comes from the shape."""
+        pass over every replica's boundary nodes; B comes from the shape."""
         types, nbrs, bc = self._ensemble_tables(
             (f.shape[0] - 1) // self.tiling.num_tiles)
         return self._advance(f, out, types, nbrs, bc)

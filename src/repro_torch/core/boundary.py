@@ -14,7 +14,6 @@ normal velocity solved from mass conservation (pressure BC).
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -37,55 +36,46 @@ class BoundarySpec:
     rho: float = 1.0
 
 
-def _direction_sets(lat: Lattice, normal):
-    edotn = lat.e @ np.asarray(normal)
-    return (np.nonzero(edotn > 0)[0],     # unknown (to reconstruct)
-            np.nonzero(edotn < 0)[0],     # outgoing
-            np.nonzero(edotn == 0)[0])    # parallel
-
-
-@lru_cache(maxsize=None)
-def _index_tensors(lat: Lattice, normal: tuple, device: torch.device):
-    """(unknown, opp(unknown), outgoing, parallel) direction indices on
-    ``device``."""
-    unknown, outgoing, parallel = _direction_sets(lat, normal)
-    return tuple(torch.as_tensor(v, device=device)
-                 for v in (unknown, lat.opp[unknown], outgoing, parallel))
+def _total(terms, zero: torch.Tensor) -> torch.Tensor:
+    """``zero`` plus the signed terms ``(sign, tensor)``, one add at a time
+    in the given order (as ``csrc/nebb_pass.cu`` sums)."""
+    acc = zero
+    for sign, v in terms:
+        acc = acc + v if sign > 0 else acc - v
+    return acc
 
 
 def apply_open_boundary(f: torch.Tensor, mask: torch.Tensor,
                         spec: BoundarySpec, lat: Lattice) -> torch.Tensor:
     """Rebuild unknown populations on nodes selected by ``mask``.
 
-    f: (Q, ...), mask: (...) bool.  Returns a new f.  All unknown
-    directions are rebuilt in one batch of ops (each op is a launch on the
-    card, and the fused step runs this pass every step).
+    f: (Q, ...), mask: (...) bool.  Returns a new f.  Every op is
+    elementwise (the sums over directions are written out), so a node's
+    result does not depend on how many nodes ``f`` holds, as the rounding
+    of a reduction or a matmul over them would.
     """
-    unknown, opp, outgoing, parallel = _index_tensors(lat, tuple(spec.normal),
-                                                      f.device)
-    n = constant(tuple(float(v) for v in spec.normal), f.dtype, f.device)
-
-    f_par = f[parallel].sum(dim=0)
-    f_out = f[outgoing].sum(dim=0)
-
-    lead = (3,) + (1,) * mask.dim()
+    nrm = np.asarray(spec.normal)
+    en = lat.e @ nrm
+    zero = f.new_zeros(())
+    f_par = _total([(1, f[i]) for i in np.nonzero(en == 0)[0]], zero)
+    f_out = _total([(1, f[i]) for i in np.nonzero(en < 0)[0]], zero)
     if spec.kind == "velocity":
         u = constant(tuple(float(v) for v in spec.velocity), f.dtype, f.device)
-        un = torch.dot(u, n)
+        un = _total([(c, u[a]) for a, c in enumerate(nrm) if c], zero)
         rho = (f_par + 2.0 * f_out) / (1.0 - un)
-        u_full = u.reshape(lead).expand((3,) + tuple(mask.shape))
+        u = u.unbind(0)
     elif spec.kind == "pressure":
         rho = constant((float(spec.rho),), f.dtype, f.device)[0]
         # mass conservation normal to the face: rho (1 - u.n) = f_par + 2 f_out
         un = 1.0 - (f_par + 2.0 * f_out) / rho
-        u_full = un[None] * n.reshape(lead).expand((3,) + tuple(mask.shape))
+        u = [un if c > 0 else (-un if c < 0 else zero) for c in nrm]
     else:
         raise ValueError(spec.kind)
 
-    e, w = lattice_tensors(lat, f.dtype, f.device)
-    eu = torch.tensordot(e[unknown], u_full, dims=1)          # (U, ...)
-    w_u = w[unknown].reshape((-1,) + (1,) * mask.dim())
-    rebuilt = f[opp] + 2.0 * w_u * rho * eu * 3.0
-    new_f = f.clone()
-    new_f[unknown] = torch.where(mask, rebuilt, f[unknown])
-    return new_f
+    _, w = lattice_tensors(lat, f.dtype, f.device)
+    new_f = list(f.unbind(0))
+    for i in np.nonzero(en > 0)[0]:
+        eu = _total([(c, u[a]) for a, c in enumerate(lat.e[i]) if c], zero)
+        rebuilt = f[lat.opp[i]] + 2.0 * w[i] * rho * eu * 3.0
+        new_f[i] = torch.where(mask, rebuilt, f[i])
+    return torch.stack(new_f)

@@ -496,8 +496,8 @@ class ShardedLBM:
             if not self.fused:
                 self.f = [b.step(f) for b, f in zip(self.backends, self.f)]
                 continue
-            # K1 on every slab first, then the NEBB passes: the host enqueues
-            # a pass's ~70 small ops while the card runs the slabs' K1
+            # K1 on every slab first, then the NEBB passes (one kernel launch
+            # each): the host enqueues them while the card runs the slabs' K1
             outs = [b.stream_collide(f) for b, f in zip(self.backends, self.f)]
             for b, f, out in zip(self.backends, self.f, outs):
                 b.boundary_pass(f, out)
@@ -643,8 +643,8 @@ class ShardedLBM:
         ``devices="meta"`` to count without allocating): the halo
         exchange's collective-permutes over mesh ``axis``, one a hop the
         slab sends, each the reference's padded (Q, h, n) block of f; then
-        the slab's backend step: on ``fused`` K1 by its cost function and
-        the NEBB pass's ops, on ``gather`` streaming and the collision (K2
+        the slab's backend step: on ``fused`` K1 and the NEBB kernel by
+        their cost functions, on ``gather`` streaming and the collision (K2
         by its cost function with ``use_kernel``).  Returns one Counter a
         slab, in slab order; the slab's state counts as resident."""
         h = self._halo_tables["su"].shape[1] if self.hops else 0

@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("collide", "flash_attn", "flash_attn_bwd", "stream_collide")
+SOURCES = ("collide", "flash_attn", "flash_attn_bwd", "nebb_pass", "stream_collide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -53,6 +53,7 @@ from repro_torch.core.tiling import INLET, NODE_ORDERS, OUTLET, TILE_ORDERS
 from repro_torch.data import geometry as geo
 from repro_torch.dist.lbm import ShardedLBM
 from repro_torch.kernels.collide import collide_tiles
+from repro_torch.kernels.nebb_pass import nebb_boundary_pass
 from repro_torch.kernels.stream_collide import stream_collide_tiles
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.roofline.analysis import collective_time
@@ -185,12 +186,14 @@ def dryrun(multi_pod: bool, collision: str = "lbgk", fluid: str = "incompressibl
 
 def launch_counts() -> dict[str, int]:
     return {"stream_collide_tiles": stream_collide_tiles.launches,
-            "collide_tiles": collide_tiles.launches}
+            "collide_tiles": collide_tiles.launches,
+            "nebb_boundary_pass": nebb_boundary_pass.launches}
 
 
 def reset_launch_counts() -> None:
     stream_collide_tiles.launches = 0
     collide_tiles.launches = 0
+    nebb_boundary_pass.launches = 0
 
 
 def timed_run(eng, steps: int) -> float:

@@ -20,11 +20,14 @@ runs the FMA kernel (64-row blocks, 64-key tiles).  The moe, ssm and hybrid smok
 models on the card against the same weights on the CPU: greedy tokens
 equal, prefill logits within 1e-4.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import collision as C
+from repro_torch.core.boundary import BoundarySpec
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM
 from repro_torch.core.lattice import get_lattice
 from repro_torch.core.tiling import SOLID, tile_geometry
@@ -32,6 +35,8 @@ from repro_torch.data.geometry import duct_wrap, random_spheres
 from repro_torch.kernels import collide as k2
 from repro_torch.kernels import flash as k3
 from repro_torch.kernels import stream_collide as k1
+from repro_torch.kernels.nebb_pass import (BoundaryNodes, nebb_boundary_pass,
+                                           nebb_boundary_pass_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +254,130 @@ def test_sim_service_on_the_card_matches_the_cpu(dev):
         assert abs(a["mass"] - b["mass"]) <= 1e-12 * abs(a["mass"])
         assert abs(a["mean_speed"] - b["mean_speed"]) <= 1e-12
         assert abs(a["probes"][0]["rho"] - b["probes"][0]["rho"]) <= 1e-12
+
+
+# ---------------------------------------------------------------- NEBB pass
+NORMALS = [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+
+
+def _nebb_specs(kind):
+    """One spec on each of the six axis normals: a velocity along the
+    normal with a part across it, or a pressure."""
+    if kind == "velocity":
+        return tuple(BoundarySpec("velocity", nrm, velocity=tuple(
+            0.02 * c + 0.001 * (a + 1) for a, c in enumerate(nrm))) for nrm in NORMALS)
+    return tuple(BoundarySpec("pressure", nrm, rho=1.0 + 0.01 * i)
+                 for i, nrm in enumerate(NORMALS))
+
+
+def _nebb_tables(dev, t, nodes, seed, q=19, n=64):
+    """Random node tables over one replica's T tiles: distinct (tile, slot)
+    pairs, spec indices 0..5, sources anywhere in the replica's rows."""
+    rng = np.random.default_rng(seed)
+    node = np.sort(rng.choice(t * n, nodes, replace=False))
+    return BoundaryNodes(tiles=(node // n).astype(np.int32),
+                         slots=(node % n).astype(np.int32),
+                         spec=rng.integers(0, 6, nodes).astype(np.uint8),
+                         src=rng.integers(0, t * q * n, (q, nodes)).astype(np.int32),
+                         num_tiles=t).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["velocity", "pressure"])
+@pytest.mark.parametrize("model,fluid,force", VARIANTS)
+def test_nebb_kernel_matches_plain(dev, dtype, kind, model, fluid, force):
+    """The NEBB kernel against its plain version, one launch each, on a
+    single state and on 4 replicas: every slot within TOL (slots off the
+    tables keep the values K1 left), and each replica's rows bit for bit a
+    launch over that replica alone, so its offset is its own."""
+    t, nodes = 50, 1500
+    lat, cfg = get_lattice("D3Q19"), C.CollisionConfig(model, fluid, 0.7)
+    specs, bc = _nebb_specs(kind), _nebb_tables(dev, t, nodes, seed=len(kind))
+    rng = np.random.default_rng(7)
+    f = torch.as_tensor(rng.uniform(0.02, 0.1, (4 * t + 1, 19, 64)), dtype=dtype, device=dev)
+    k1_out = torch.as_tensor(rng.uniform(0.02, 0.1, f.shape), dtype=dtype, device=dev)
+    f[-1] = k1_out[-1] = 0.0
+    for b in (1, 4):
+        rows = lambda x: torch.cat([x[:b * t], x[-1:]])  # noqa: E731
+        fb, ob = rows(f), rows(k1_out)
+        before = nebb_boundary_pass.launches
+        got = nebb_boundary_pass(fb, ob.clone(), lat, cfg, force, specs, bc)
+        assert nebb_boundary_pass.launches == before + 1
+        want = nebb_boundary_pass_ref(fb, ob.clone(), lat, cfg, force, specs, bc)
+        assert float((got - want).abs().max()) <= TOL[dtype]
+        touched = torch.zeros(b * t + 1, 64, dtype=torch.bool, device=dev)
+        for r in range(b):
+            touched[bc.tiles.long() + r * t, bc.slots.long()] = True
+        touched = touched[:, None, :].expand_as(got)
+        assert torch.equal(got[~touched], ob[~touched])
+        assert bool((got[touched] != ob[touched]).all())
+    for r in range(4):
+        one = lambda x: torch.cat([x[r * t:(r + 1) * t], x[-1:]])  # noqa: E731
+        single = nebb_boundary_pass(one(f), one(k1_out), lat, cfg, force, specs, bc)
+        assert torch.equal(got[r * t:(r + 1) * t], single[:t])
+
+
+def test_nebb_kernel_on_sharded_slabs(dev):
+    """Each slab of ``ShardedLBM`` with boundary nodes runs the kernel over
+    its own tables: one launch, within 1e-12 of the plain version on the
+    slab's K1 output (MRT, quasi-compressible, float64)."""
+    from repro_torch.dist.lbm import ShardedLBM
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    cfg = LBMConfig(backend="fused", dtype="float64", boundaries=_Z_FLOW,
+                    collision=C.CollisionConfig(C.LBMRT, C.QUASI_COMPRESSIBLE, 0.8))
+    eng = ShardedLBM(g, cfg, slabs=4, devices=dev.type)
+    eng.run(3)
+    slabs = [(b, f) for b, f in zip(eng.backends, eng.f) if b._bc is not None]
+    assert 0 < len(slabs) < 4
+    for b, f in slabs:
+        out = b.stream_collide(f)
+        want = nebb_boundary_pass_ref(f, out.clone(), b.lat, cfg.collision, cfg.force,
+                                      b._specs, b._bc)
+        before = nebb_boundary_pass.launches
+        b.boundary_pass(f, out)
+        assert nebb_boundary_pass.launches == before + 1
+        assert float((out - want).abs().max()) <= 1e-12
+
+
+def test_nebb_pass_launches_once_a_step(dev):
+    """The main path goes through the kernel: one launch a step of an
+    engine and of an ensemble (every replica in one), none without an open
+    boundary."""
+    from repro_torch.launch.lbm import _Z_FLOW
+
+    g = duct_wrap(random_spheres(box=32, porosity=0.6, diameter=8, seed=1))
+    eng = SparseTiledLBM(g, LBMConfig(backend="fused", dtype="float64",
+                                      boundaries=_Z_FLOW), device=dev)
+    ens = eng.ensemble(3)
+    periodic = SparseTiledLBM(random_spheres(box=32, porosity=0.6, diameter=8, seed=1),
+                              LBMConfig(backend="fused", periodic=(True,) * 3), device=dev)
+    nebb_boundary_pass.launches = k1.stream_collide_tiles.launches = 0
+    eng.run(5)
+    ens.run(4)
+    periodic.run(2)
+    assert k1.stream_collide_tiles.launches == 11
+    assert nebb_boundary_pass.launches == 9
+
+
+def test_nebb_kernel_rejects_what_it_cannot_take(dev):
+    t = 10
+    lat, cfg = get_lattice("D3Q19"), C.CollisionConfig()
+    bc, specs = _nebb_tables(dev, t, 100, seed=0), _nebb_specs("pressure")
+    f = torch.rand(t + 1, 19, 64, dtype=torch.float64, device=dev)
+    out = torch.rand_like(f)
+    with pytest.raises(TypeError):
+        nebb_boundary_pass(f.half(), out.half(), lat, cfg, None, specs, bc)
+    with pytest.raises(ValueError):
+        nebb_boundary_pass(f, f, lat, cfg, None, specs, bc)
+    with pytest.raises(TypeError):
+        nebb_boundary_pass(f, out, lat, cfg, None, specs,
+                           dataclasses.replace(bc, src=bc.src.long()))
+    with pytest.raises(ValueError):
+        nebb_boundary_pass(f[:-1], out[:-1], lat, cfg, None, specs, bc)
+    with pytest.raises(ValueError):
+        nebb_boundary_pass(f, out, lat, cfg, None, specs + specs, bc)
 
 
 def _sharded_vs_single(dev, backend, devices, slabs=None):

@@ -126,8 +126,13 @@ def _lbm_single():
 
 def test_lbm_dryrun_fused_counts_k1_by_its_cost():
     out = launcher.dryrun(False, verbose=False, backend="fused")
-    (launches, flops, nbytes), = out["kernels"].values()
+    launches, flops, nbytes = out["kernels"]["stream_collide_tiles"]
     assert launches == 1 and flops > 0 and nbytes > 0
+    # the busiest slab holds the inlet or the outlet: its NEBB pass is one
+    # launch too, counted by its cost function
+    nebb = out["kernels"]["nebb_boundary_pass"]
+    assert set(out["kernels"]) == {"stream_collide_tiles", "nebb_boundary_pass"}
+    assert nebb[0] == 1 and 0 < nebb[2] < nbytes / 4
     assert out["coll_bytes_per_device"] == 350_208
 
 

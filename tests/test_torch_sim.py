@@ -34,6 +34,7 @@ from repro.sim.service import SimService as RService
 from repro_torch import convert
 from repro_torch.checkpoint.store import COMMITTED, CheckpointStore
 from repro_torch.core.engine import LBMConfig, SparseTiledLBM
+from repro_torch.kernels.nebb_pass import replica_sources
 from repro_torch.kernels.stream_collide import stream_collide_tiles
 from repro_torch.sim.registry import (EngineRegistry, config_from_dict,
                                       config_signature, config_to_dict,
@@ -218,17 +219,23 @@ def test_index_bytes_per_step_match_reference(kw):
 
 
 def test_ensemble_tables_offsets_in_int64():
-    """The NEBB gather of a B-replicated state adds b*T*Q*n in int64."""
+    """A B-replicated state shares the engine's NEBB tables; the pass adds
+    replica b's base b*T*Q*n in int64 (the offsets the tables were once
+    copied with, per replica)."""
     eng = SparseTiledLBM(_spheres(), LBMConfig(backend="fused", boundaries=BCS),
                          device="cpu")
     types, nbrs, bc = eng.backend._ensemble_tables(3)
     t, q, n = eng.tiling.num_tiles, 19, 64
-    assert bc["gather"].dtype == torch.int64 and bc["tiles"].dtype == torch.int64
+    assert bc is eng.backend._bc and bc.src.dtype == torch.int32
     assert nbrs.shape == (3 * t, 27) and int(nbrs.max()) == 3 * t
     assert types.shape == (3 * t + 1, n) and bool((types[-1] == 0).all())
-    single = eng.backend._bc["gather"]
-    assert torch.equal(bc["gather"].view(q, 3, -1)[:, 2],
-                       single.view(q, -1) + 2 * t * q * n)
+    got = replica_sources(bc, 3, q, n)
+    old = np.concatenate([bc.src.numpy().astype(np.int64)[:, None] + b * t * q * n
+                          for b in range(3)], axis=1)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), old)
+    assert bc.replicas(torch.empty(3 * t + 1, 1)) == 3
+    with pytest.raises(ValueError, match="rows"):
+        bc.replicas(torch.empty(3 * t, 1))
 
 
 # ------------------------------------------------------------------ service

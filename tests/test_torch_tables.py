@@ -160,8 +160,10 @@ def test_neighbor_table_rejects_unaligned_periodic_extent():
                          [("zmajor", "canonical"), ("morton", "sfc"),
                           ("morton_slab", "frontier_last")])
 def test_boundary_pass_tables_copy(tile_order, node_order):
-    """The fused backend's NEBB tables, built from boundary-tile rows only,
-    equal the reference's, which slice the full table."""
+    """The fused backend's NEBB node tables, built from boundary-tile rows
+    only, are the reference's whole-tile tables restricted to the boundary
+    nodes: in tile and slot order, each with its spec index and the
+    reference's packed gather column."""
     g = r_geo.duct_wrap(_spheres(), wall=4)
     rt, pt = _tilings(g, tile_order, node_order)
     r_bcs = ((r_tiling.INLET, RSpec("velocity", (0, 0, 1))),
@@ -170,13 +172,39 @@ def test_boundary_pass_tables_copy(tile_order, node_order):
              (p_tiling.OUTLET, PSpec("pressure", (0, 0, -1))))
     lat_r, lat_p = r_lat.d3q19(), p_lat.d3q19()
     gi = r_stream.build_stream_tables(rt, lat_r, "xyz").gather_idx
-    r = r_boundary_tables(rt.node_types, gi, r_bcs, 19, 64)
+    r_tiles, r_packed, r_masks, _ = r_boundary_tables(rt.node_types, gi, r_bcs, 19, 64)
     p = p_boundary_tables(pt, lat_p, p_bcs, (False, False, False))
-    assert len(r[0]) < rt.num_tiles
-    for a, b in zip(r, p):
-        _assert_same(a, b)
+    assert len(r_tiles) < rt.num_tiles and p.num_tiles == pt.num_tiles
+    j, slots = np.nonzero(r_masks.any(axis=0))
+    _assert_same(p.tiles, r_tiles[j])
+    _assert_same(p.slots, slots.astype(np.int32))
+    _assert_same(p.spec, r_masks[:, j, slots].argmax(axis=0).astype(np.uint8))
+    _assert_same(p.src, r_packed[:, j, slots])
     absent = ((7, p_bcs[0][1]),)
     assert p_boundary_tables(pt, lat_p, absent, (False,) * 3) is None
+
+
+@pytest.mark.parametrize("periodic", [(False,) * 3, (True, True, False)])
+@pytest.mark.parametrize("tile_order,node_order", [("zmajor", "canonical"),
+                                                   ("hilbert", "sfc")])
+def test_boundary_nodes_listed_once(tile_order, node_order, periodic):
+    """Every node of a declared boundary type is listed once, with the index
+    of its type's spec; no other node is listed."""
+    _, pt = _tilings(r_geo.duct_wrap(_spheres(), wall=4), tile_order, node_order)
+    bcs = ((p_tiling.OUTLET, PSpec("pressure", (0, 0, -1))),
+           (p_tiling.INLET, PSpec("velocity", (0, 0, 1))))
+    p = p_boundary_tables(pt, p_lat.d3q19(), bcs, periodic)
+    n = pt.nodes_per_tile
+    node = p.tiles.astype(np.int64) * n + p.slots
+    assert len(np.unique(node)) == len(node) and np.all(np.diff(node) > 0)
+    types = pt.node_types.reshape(-1)
+    want = np.nonzero(np.isin(types, (p_tiling.INLET, p_tiling.OUTLET)))[0]
+    _assert_same(node, want)
+    _assert_same(np.array([bcs[k][0] for k in p.spec], np.uint8), types[node])
+    assert p.src.shape == (19, len(node)) and p.src.flags.c_contiguous
+    assert 0 <= p.src.min() and p.src.max() < pt.num_tiles * 19 * n
+    with pytest.raises(ValueError, match="twice"):
+        p_boundary_tables(pt, p_lat.d3q19(), bcs + bcs[:1], periodic)
 
 
 def _cuh_array(src, q, fn):
