@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from .reference import COLLISIONS, FLUIDS
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -84,11 +86,12 @@ def lbm_config(config: dict, dtype: str):
     from repro_torch.core.engine import LBMConfig
 
     ph = config["physics"]
-    if (ph["lattice"], ph["collision"], ph["fluid"]) != ("D3Q19", "lbgk", "incompressible"):
-        raise ValueError("the reference is D3Q19 LBGK, incompressible")
+    for key, known in (("lattice", ("D3Q19",)), ("collision", COLLISIONS), ("fluid", FLUIDS)):
+        if ph[key] not in known:
+            raise ValueError(f"the reference has no {key} {ph[key]!r}; it has {', '.join(known)}")
     return LBMConfig(
         lattice="D3Q19", a=config["tile_edge"], layout_scheme="xyz", backend="fused",
-        collision=col.CollisionConfig(model="lbgk", fluid="incompressible", tau=ph["tau"]),
+        collision=col.CollisionConfig(model=ph["collision"], fluid=ph["fluid"], tau=ph["tau"]),
         dtype=dtype, periodic=tuple(ph["periodic"]),
         force=None if ph["force"] is None else tuple(ph["force"]),
         rho0=ph["rho0"], u0=tuple(ph["u0"]),

@@ -16,27 +16,21 @@ def step_eqn10_share(ctx):
     return 100.0 * eqn10_bytes(w["updates"], ctx["itemsize"]) / w["seconds"] / HBM_BYTES_PER_S
 
 
-def kernel_roofline(ctx, kernels):
+def kernel_roofline(ctx, kernels, counter):
     """Percent: Eqn-10 bytes of the node updates one launch of the named
     kernels does (every fluid node of every replica) over the launches'
-    mean device time and the bandwidth peak."""
+    mean device time and the bandwidth peak.  None unless the trace holds
+    one record for each launch the program's ``counter`` counted there: a
+    lost or a stray record would shift the mean."""
     trace = ctx.get("trace")
     if trace is None:
         return None
     us = [end - start for start, end, name in trace.ops if any(k in name for k in kernels)]
-    if not us:
+    if not us or len(us) != trace.launches.get(counter):
         return None
     seconds = sum(us) / len(us) / 1e6
     return (100.0 * eqn10_bytes(ctx["replicas"] * ctx["n_fluid"], ctx["itemsize"])
             / seconds / HBM_BYTES_PER_S)
-
-
-def scope_ms_per_step(ctx, scope):
-    """Device milliseconds under the host range ``scope`` per traced step."""
-    trace = ctx.get("trace")
-    if trace is None or not trace.scope_s.get(scope):
-        return None
-    return 1e3 * trace.scope_s[scope] / trace.steps
 
 
 def device_ops_per_step(ctx):

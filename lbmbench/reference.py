@@ -1,5 +1,6 @@
-"""The plain reference: D3Q19 LBGK (incompressible) on the non-solid nodes
-of the dense grid, in plain PyTorch.
+"""The plain reference: D3Q19 LBGK or LBMRT, incompressible or
+quasi-compressible, on the non-solid nodes of the dense grid, in plain
+PyTorch.
 
 It works from the dense node-type grid and a configuration's physics
 alone.  The nodes are the grid's non-solid points in C order; one step is
@@ -11,10 +12,24 @@ alone.  The nodes are the grid's non-solid points in C order; one step is
                      constant-pressure outlet) on the nodes of each
                      boundary type, rebuilding the populations that
                      stream in from outside the fluid;
-    collision        LBGK, f + (feq(rho, u + tau F) - f) / tau, with
-                     feq = w (rho + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u);
+    collision        LBGK, f + (feq - f) / tau (Eqn 2), or LBMRT,
+                     f + M^-1 S M (feq - f) (Eqn 8), with feq of rho and
+                     the velocity u shifted by the body force F:
+      incompressible       u = j, u + tau F,
+                           feq = w (rho + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u)
+                           (Eqn 4);
+      quasi-compressible   u = j / rho, u + tau F / rho,
+                           feq = w rho (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u)
+                           (Eqn 3);
 
-the paper's Eqns (2), (4) and §2.2.  It imports nothing of the program.
+the paper's Eqns (2)-(8) and §2.2.  LBMRT's moments M are the 19
+polynomials of d'Humieres, Ginzburg, Krafczyk, Lallemand & Luo, "Multiple-
+relaxation-time lattice Boltzmann models in three dimensions", Phil. Trans.
+R. Soc. A 360:437 (2002), and S holds that paper's rates: s1 1.19, s2 =
+s10 = s12 1.4, s4 = s6 = s8 1.2, s16-18 1.98, s9 = s11 = s13 = s14 = s15 =
+1/tau (they set the viscosity), 0 for the conserved rho and j.  The open
+boundaries are rebuilt alike in both fluid models.  It imports nothing of
+the program.
 """
 from __future__ import annotations
 
@@ -22,6 +37,8 @@ import numpy as np
 import torch
 
 SOLID = 0
+COLLISIONS = ("lbgk", "lbmrt")
+FLUIDS = ("incompressible", "quasi_compressible")
 
 # D3Q19 in the paper's direction order (Fig. 1): O, E N W S T B, NE NW SW
 # SE, ET NT WT ST, EB NB WB SB
@@ -44,6 +61,37 @@ def equilibrium(rho: torch.Tensor, u: torch.Tensor, e: torch.Tensor,
     return eu.mul(4.5).add_(3.0).mul_(eu).add_(rho - 1.5 * u2).mul_(w[:, None])
 
 
+def quasi_equilibrium(rho: torch.Tensor, u: torch.Tensor, e: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """feq (Q, N) of rho (N,) and u (3, N), quasi-compressible (Eqn 3)."""
+    eu = e @ u
+    u2 = (u * u).sum(dim=0)
+    return eu.mul(4.5).add_(3.0).mul_(eu).add_(1.0 - 1.5 * u2).mul_(rho).mul_(w[:, None])
+
+
+def moment_matrix() -> np.ndarray:
+    """d'Humieres et al. (2002)'s (19, Q) moment matrix M in this module's
+    direction order: the rows rho, e, eps, jx, qx, jy, qy, jz, qz, 3pxx,
+    3pixx, pww, piww, pxy, pyz, pxz, mx, my, mz as polynomials of e."""
+    x, y, z = E.T.astype(np.float64)
+    c2 = x * x + y * y + z * z
+    return np.stack([
+        np.ones(Q), 19 * c2 - 30, (21 * c2 * c2 - 53 * c2 + 24) / 2,
+        x, (5 * c2 - 9) * x, y, (5 * c2 - 9) * y, z, (5 * c2 - 9) * z,
+        3 * x * x - c2, (3 * c2 - 5) * (3 * x * x - c2),
+        y * y - z * z, (3 * c2 - 5) * (y * y - z * z),
+        x * y, y * z, x * z,
+        x * (y * y - z * z), y * (z * z - x * x), z * (x * x - y * y)])
+
+
+def mrt_rates(tau: float) -> np.ndarray:
+    """The (19,) relaxation rates of the moments of ``moment_matrix``."""
+    s = np.zeros(Q)
+    s[1], s[[2, 10, 12]], s[[4, 6, 8]], s[16:] = 1.19, 1.4, 1.2, 1.98
+    s[[9, 11, 13, 14, 15]] = 1.0 / tau
+    return s
+
+
 def fluid_nodes(g: torch.Tensor):
     """The non-solid nodes of the dense node-type grid ``g``: their
     coordinates (N, 3) int64 in C order, and the grid of their numbers
@@ -59,8 +107,9 @@ class Reference:
     """The reference solver over one geometry, on ``device`` in ``dtype``.
 
     geometry:   dense (X, Y, Z) uint8 node types (SOLID = 0)
-    physics:    a configuration's ``physics`` entry: ``tau``, ``force``
-                (None or (3,)), ``periodic`` ((3,) bools) and
+    physics:    a configuration's ``physics`` entry: ``collision``
+                (``COLLISIONS``), ``fluid`` (``FLUIDS``), ``tau``,
+                ``force`` (None or (3,)), ``periodic`` ((3,) bools) and
                 ``boundaries`` (list of {node_type, kind, normal,
                 velocity | rho})
     """
@@ -70,6 +119,10 @@ class Reference:
         self.device, self.dtype = torch.device(device), dtype
         self.shape = tuple(int(s) for s in geometry.shape)
         self.tau = float(physics["tau"])
+        self.collision, fluid = physics["collision"], physics["fluid"]
+        if self.collision not in COLLISIONS or fluid not in FLUIDS:
+            raise ValueError(f"no reference for collision {self.collision!r}, fluid {fluid!r}")
+        self.quasi = fluid == "quasi_compressible"
         periodic = tuple(bool(p) for p in physics["periodic"])
         g = torch.as_tensor(np.ascontiguousarray(geometry), device=self.device)
         self.coords, index = fluid_nodes(g)
@@ -97,6 +150,11 @@ class Reference:
         self._w = torch.as_tensor(W, **kw)
         # rows of the moments: rho = sum f, j = sum e f
         self._moments = torch.cat([torch.ones((1, Q), **kw), self._e.T])
+        if self.collision == "lbmrt":
+            m = moment_matrix()
+            # M's rows are orthogonal: M^-1 = M^T diag(1 / |row|^2)
+            self._mrt = tuple(torch.as_tensor(a, **kw) for a in
+                              (m.T / (m * m).sum(axis=1), np.diag(mrt_rates(self.tau)), m))
         force = physics.get("force")
         self._force = None if force is None else self.tau * torch.as_tensor(force, **kw)[:, None]
         self.boundaries = []
@@ -119,12 +177,13 @@ class Reference:
 
     # ------------------------------------------------------------ physics
     def equilibrium(self, rho: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        return equilibrium(rho, u, self._e, self._w)
+        return (quasi_equilibrium if self.quasi else equilibrium)(rho, u, self._e, self._w)
 
     def macroscopics(self, f: torch.Tensor):
-        """rho (N,) and u = j (3, N) of f (Q, N)."""
+        """rho (N,) and u (3, N) of f (Q, N): u = j, or j / rho in the
+        quasi-compressible fluid."""
         m = self._moments @ f.to(self.dtype)
-        return m[0], m[1:]
+        return m[0], m[1:] / m[0] if self.quasi else m[1:]
 
     def _open_boundaries(self, f_in: torch.Tensor) -> None:
         """Non-equilibrium bounce-back on every boundary type, in place:
@@ -148,7 +207,10 @@ class Reference:
         self._open_boundaries(f_in)
         rho, u = self.macroscopics(f_in)
         if self._force is not None:
-            u = u + self._force
+            u = u + (self._force / rho if self.quasi else self._force)
+        if self.collision == "lbmrt":
+            m_inv, s, m = self._mrt
+            return f_in.add_(m_inv @ (s @ (m @ self.equilibrium(rho, u).sub_(f_in))))
         # LBGK: f + (feq - f) / tau = (1 - 1/tau) f + feq / tau
         out = self.equilibrium(rho, u).mul_(1.0 / self.tau)
         return out.add_(f_in, alpha=1.0 - 1.0 / self.tau)

@@ -1,5 +1,6 @@
-"""The readers of the service's span metrics on a hand-made traced segment:
-known spans and device time under their ranges give known numbers (CPU)."""
+"""The readers of the service's span metrics and of K1's roofline on a
+hand-made traced segment: known spans, device time under their ranges and
+device records give known numbers (CPU)."""
 import pytest
 
 from lbmbench import harness as h
@@ -50,3 +51,24 @@ def test_span_metric_reads_nothing_without_its_spans(metric):
 
 def test_key_metric_reads_nothing_without_a_finished_session():
     assert h.metric_reader("service_key_ms_per_session")(_ctx(SPANS, SCOPE_S, finished=0)) is None
+
+
+def _k1_ctx(records, launches):
+    ops = [(1000.0 * i, 1000.0 * i + 500.0, "void repro::stream_collide_kernel<double>")
+           for i in range(records)]
+    trace = TraceSummary(steps=4, window_s=0.004, busy_s=0.002, ops=ops, scope_s={}, spans=[],
+                         idle_gaps=[], launches={"stream_collide_tiles": launches})
+    return {"trace": trace, "n_fluid": 10**6, "itemsize": 8, "replicas": 1}
+
+
+# 1e6 f64 node updates a launch: 2 * 19 * 8 B each in 0.5 ms against 3.35e12 B/s
+WHOLE = 100.0 * 2 * 19 * 8 * 1e6 / 500e-6 / 3.35e12
+
+
+@pytest.mark.parametrize("records,want", [(4, WHOLE), (3, None), (5, None)],
+                         ids=["whole", "lost", "stray"])
+def test_k1_roofline_reads_only_a_whole_trace(records, want):
+    """Four launches counted: four 0.5 ms records read their share; a lost
+    or a stray record reads nothing."""
+    read = h.metric_reader("k1_roofline")(_k1_ctx(records, 4))
+    assert read == (None if want is None else pytest.approx(want))

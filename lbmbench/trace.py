@@ -7,8 +7,10 @@ the device's clock: the profiler can place device records against host
 ones with an offset of milliseconds, so the segment's device operations
 are those that start after the marker.  The reduction keeps what the
 per-layer metrics read: the device operations, their busy time, the device
-time under each host range (``record_function``), the host spans and the idle gaps with
-what the host was doing in them.
+time under each host range (``record_function``), the host spans, the idle gaps with
+what the host was doing in them, and how far the program's K1 launch counter
+advanced over the segment of the run the device operations come from, so
+that a reader can tell a trace that lost a record from a whole one.
 """
 from __future__ import annotations
 
@@ -30,6 +32,9 @@ class TraceSummary:
     scope_s: dict        # device seconds under each host range (annotated run)
     spans: list          # the program's host spans (annotated run)
     idle_gaps: list      # [host activity, seconds], most first (annotated run)
+    # launches the program counted in the segment, by its counter's name (the
+    # run ``ops`` come from)
+    launches: dict = dataclasses.field(default_factory=dict)
 
     def top_ops(self, k: int = 10) -> list:
         """The device operations that took most time: [name, seconds]."""
@@ -76,10 +81,17 @@ def _idle_gaps(ops, host, start_us, k: int = 10, longest: int = 200) -> list:
             sorted(total.items(), key=lambda kv: -kv[1])[:k]]
 
 
+def _launches() -> dict:
+    """The program's launch counters that readers check records against."""
+    from repro_torch.kernels.stream_collide import stream_collide_tiles
+
+    return {"stream_collide_tiles": stream_collide_tiles.launches}
+
+
 def _profile(fn, warm, cpu: bool):
     """``warm()``, then ``fn()`` behind a marker kernel, under
-    ``torch.profiler``; its events and the marker's host range (None
-    without host activity)."""
+    ``torch.profiler``; its events, the marker's host range (None without
+    host activity) and how far each launch counter advanced in ``fn()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -90,13 +102,16 @@ def _profile(fn, warm, cpu: bool):
         warm()
         torch.cuda.synchronize()
         obs.get_tracer().reset()
+        before = _launches()
         with record_function(WINDOW):
             torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in _launches().items()}
     events = prof.events()
     host = [e for e in events if e.name == WINDOW and e.device_type == DeviceType.CPU]
-    return events, (host[0].time_range.start, host[0].time_range.end) if host else None
+    return (events, (host[0].time_range.start, host[0].time_range.end) if host else None,
+            launches)
 
 
 def _device_ops(events, t0):
@@ -126,7 +141,7 @@ def profile_segment(fn, warm, steps: int) -> TraceSummary:
 
     obs.enable(metrics=False, trace=True)
     try:
-        events, (t0, t1) = _profile(fn, warm, cpu=True)
+        events, (t0, t1), launches_a = _profile(fn, warm, cpu=True)
     finally:
         obs.disable()
     spans = list(obs.get_tracer().spans)
@@ -146,10 +161,11 @@ def profile_segment(fn, warm, steps: int) -> TraceSummary:
             scope_s[e.name] = scope_s.get(e.name, 0.0) + total / 1e6
     idle_gaps = _idle_gaps(ops_a, host, start_a)
     del events, host
-    ops, start = _device_ops(_profile(fn, warm, cpu=False)[0], None)
+    events, _, launches = _profile(fn, warm, cpu=False)
+    ops, start = _device_ops(events, None)
     if not ops:
-        ops, start = ops_a, start_a
+        ops, start, launches = ops_a, start_a, launches_a
     end = max((e for _, e, _ in ops), default=start)
     return TraceSummary(steps=steps, window_s=(end - start) / 1e6,
                         busy_s=_union_us(ops) / 1e6, ops=ops, scope_s=scope_s,
-                        spans=spans, idle_gaps=idle_gaps)
+                        spans=spans, idle_gaps=idle_gaps, launches=launches)
