@@ -43,6 +43,10 @@ class CollisionConfig:
     def viscosity(self) -> float:
         return (self.tau - 0.5) / 3.0
 
+    def span_attrs(self) -> dict:
+        """The attributes by which the engines' spans name this physics."""
+        return {"collision": self.model, "fluid": self.fluid, "tau": self.tau}
+
 
 # Constant tensors are cached per (dtype, device): a copy from pageable host
 # memory synchronises the stream, which would stall every step on the card.

@@ -75,15 +75,15 @@ class LBMConfig:
 
 def initial_feq(cfg: LBMConfig, lat, solid: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    """The t = 0 state: the equilibrium at (rho0, u0) on every fluid slot of
-    the (T, n) ``solid`` mask's tiles, zero at solid slots; canonical
-    (Q, T, n) on ``solid``'s device."""
-    t, n = solid.shape
+    """The t = 0 state: the equilibrium at the uniform (rho0, u0), one
+    node's Q values broadcast over every fluid slot of the (T, n) ``solid``
+    mask's tiles, zero at solid slots; canonical (Q, T, n) on ``solid``'s
+    device, the only allocation of that shape."""
     kw = dict(dtype=dtype, device=solid.device)
-    rho = torch.full((t, n), cfg.rho0, **kw)
-    u = torch.as_tensor(cfg.u0, **kw)[:, None, None].expand(3, t, n)
-    feq = col.equilibrium(rho, u, lat, cfg.collision.fluid)
-    return feq.masked_fill(solid[None], 0.0)
+    rho = torch.full((1,), cfg.rho0, **kw)
+    u = torch.as_tensor(cfg.u0, **kw)[:, None]
+    feq = col.equilibrium(rho, u, lat, cfg.collision.fluid)      # (Q, 1)
+    return torch.where(solid[None], 0.0, feq[:, :, None])
 
 
 class SparseTiledLBM:
@@ -100,8 +100,12 @@ class SparseTiledLBM:
         self.device = resolve_device(device)
         self.lat = get_lattice(cfg.lattice)
         self.dtype = DTYPES[cfg.dtype]
+        # the physics every span of this engine names: which instantiation
+        # of K1 and of the NEBB kernel each launch under it ran
+        self._physics = cfg.collision.span_attrs()
         tr = obs.get_tracer()
-        with tr.span("lbm.setup", backend=cfg.backend, dtype=cfg.dtype):
+        with tr.span("lbm.setup", backend=cfg.backend, dtype=cfg.dtype,
+                     **self._physics):
             with tr.span("lbm.setup.tiling"):
                 self.tiling: Tiling = tile_geometry(node_type, cfg.a,
                                                     order=cfg.tile_order,
@@ -160,7 +164,7 @@ class SparseTiledLBM:
     def run(self, steps: int) -> None:
         """Advance ``steps`` iterations: one launch sequence per step,
         nothing synchronised."""
-        with obs.get_tracer().span("lbm.run", steps=steps):
+        with obs.get_tracer().span("lbm.run", steps=steps, **self._physics):
             self.step(steps)
 
     # ----------------------------------------------------------- diagnostics

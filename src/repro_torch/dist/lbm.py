@@ -426,6 +426,7 @@ class ShardedLBM:
         if cfg.split_stream and cfg.backend != "gather":
             raise ValueError("split_stream requires backend='gather'")
         self.cfg = cfg
+        self._physics = cfg.collision.span_attrs()
         self.lat = get_lattice(cfg.lattice)
         self.dtype = DTYPES[cfg.dtype]
         self.fused = cfg.backend == "fused"
@@ -510,7 +511,8 @@ class ShardedLBM:
     def run(self, steps: int) -> None:
         """``steps`` iterations: one launch sequence per step, nothing
         synchronised."""
-        with obs.get_tracer().span("lbm.run", steps=steps, sharded=True):
+        with obs.get_tracer().span("lbm.run", steps=steps, sharded=True,
+                                   **self._physics):
             self._advance(steps)
         self._record_steps(steps)
 

@@ -86,7 +86,8 @@ class EnsembleLBM:
 
     def step(self, steps: int = 1) -> None:
         tr = obs.get_tracer()
-        with tr.span("lbm.ensemble.step", batch=self.batch, steps=steps):
+        with tr.span("lbm.ensemble.step", batch=self.batch, steps=steps,
+                     **self.engine._physics):
             for _ in range(steps):
                 self._advance()
         reg = obs.get_metrics()
@@ -96,7 +97,8 @@ class EnsembleLBM:
     def run(self, steps: int) -> None:
         """``steps`` iterations for all replicas, nothing synchronised."""
         tr = obs.get_tracer()
-        with tr.span("lbm.ensemble.run", batch=self.batch, steps=steps):
+        with tr.span("lbm.ensemble.run", batch=self.batch, steps=steps,
+                     **self.engine._physics):
             for _ in range(steps):
                 self._advance()
         reg = obs.get_metrics()

@@ -435,7 +435,8 @@ def test_launcher_cli_sharded_and_thin_case_fallback():
 
 def test_sharded_records_halo_metrics_and_span():
     """The reference's instrumentation: the step counter, the halo gauge
-    and counter, and the ``lbm.run`` span marked sharded."""
+    and counter, and the ``lbm.run`` span marked sharded and naming the
+    physics."""
     from repro_torch import obs
 
     reg, rec = obs.MetricRegistry(), obs.SpanRecorder()
@@ -447,4 +448,5 @@ def test_sharded_records_halo_metrics_and_span():
     assert reg.value("dist.halo.bytes") == halo
     assert reg.value("dist.halo.bytes_total") == 12 * halo
     (span,) = rec.find("lbm.run")
-    assert span.attrs == {"steps": 4, "sharded": True}
+    assert span.attrs == {"steps": 4, "sharded": True, "collision": "lbgk",
+                          "fluid": "incompressible", "tau": 0.8}
